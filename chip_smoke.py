@@ -10,22 +10,35 @@ nonzero:
   1. card     name, power limit, torch/CUDA versions; TF32 off
   2. build    every kernel of the main path, from ``src/repro_torch/csrc``
   3. kernels  each kernel against its plain PyTorch version, scale-relative
-              max error < 2e-5 (f32) / < 2e-2 (bf16)
+              max error < 2e-5 (f32) / < 2e-2 (bf16); paged_attention
+              < 1e-5 / 2e-2 (tests/test_paged_attention.py's bounds); the
+              flash kernel's zero-padded feature dims (CUR-KV ranks)
   4. times    kernel, plain version and one library call at the main
-              path's shapes (median of 25 launches, CUDA events), beside
+              paths' shapes (median of 25 launches, CUDA events), beside
               the least time the card could take (bound)
   5. small    the folded forward at a small f32 size on the card against
-              the same params on the CPU (plain versions), 2e-5
+              the same params on the CPU (plain versions), 2e-5; then
+              that model served on the card and on the CPU, dense and
+              CUR-KV pools: the greedy tokens must be identical
   6. main     ``cure()`` on full-width llama3.1-8b (random weights made on
               the card, 10 of 32 layers CURed at r_max 256), run
               ``CURE_RUNS`` times: the first (cold) run's stage times
               alone, then the median and range of the others; after the
               last run, perplexity of the original and the folded model
               and the launch counts of both kernels over that run
+  7. serve    the last run's CURed model served by ``Server`` on the card
+              (max_concurrency 8, block 16): workload A (the serve CLI's
+              ``make_workload``) and workload B (loadgen burst, prompts
+              256/512/1024, 64 new tokens), each on a dense pool and a
+              CUR-KV pool at rank 64; per run tokens/s, TTFT, TPOT, pool
+              bytes and the launches of all three kernels, with checks
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernel table.
+``--phases 1,2,3`` runs only the phases named (for a first check of a new
+kernel); the kernel table and the last line need every phase.
 """
+import argparse
 import json
 import math
 import os
@@ -40,12 +53,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12             # dense tensor-core peak, bf16
 F32_TOL, BF16_TOL = 2e-5, 2e-2  # tests/test_kernels.py::_assert_close
+PAGED_F32_TOL = 1e-5            # tests/test_paged_attention.py::_assert_close
 
 CUR_SHAPES = {"wq": (4096, 256, 4096), "wk": (4096, 256, 1024),
               "w_gate": (4096, 256, 14336)}   # (m, r, n) at r_max 256
 CUR_M = 2048                                  # 4 x 512 tokens
 FLASH_SHAPE = (4, 32, 8, 512, 128)            # B, H, K, S, d
 CURE_RUNS = 4                                 # 1 cold + 3 warm cure() runs
+PAGED_SHAPE = (8, 8, 4, 16, 69)               # B, K, G, bs, maxb (serving)
+KV_RANK = 64                                  # CUR-KV pool rank, hd / 2
 
 
 def say(*a):
@@ -122,6 +138,33 @@ def _randn(gen, shape, dtype, scale=1.0):
     import torch
     return (torch.randn(shape, generator=gen, device="cuda") * scale
             ).to(dtype)
+
+
+def _paged_case(B, K, G, r, nb, bs, maxb, *, seed=0, dtype=None,
+                inactive_last=True):
+    """tests/test_paged_attention.py::_case on the card: random q and
+    pools, a ragged block table (per-row random ctx_len, just enough blocks
+    assigned, the rest -1) and optionally one inactive slot (ctx 0, no
+    blocks)."""
+    import numpy as np
+    import torch
+    dtype = dtype or torch.float32
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = _randn(gen, (B, K, G, r), dtype)
+    kp = _randn(gen, (nb, bs, K, r), dtype)
+    vp = _randn(gen, (nb, bs, K, r), dtype)
+    ctx = np.array([rng.randint(0, maxb * bs) for _ in range(B)], np.int32)
+    table = np.full((B, maxb), -1, np.int32)
+    free = list(rng.permutation(nb))
+    for b in range(B):
+        if inactive_last and b == B - 1:
+            ctx[b] = 0
+            continue
+        for j in range(ctx[b] // bs + 1):
+            table[b, j] = free.pop()
+    return (q, kp, vp, torch.from_numpy(table).cuda(),
+            torch.from_numpy(ctx).cuda())
 
 
 def phase_kernels():
@@ -205,6 +248,98 @@ def phase_kernels():
         failures.append("flash_attention H % K raise")
     except ValueError as exc:
         say(f"  flash_attention H=6 K=4 raises: {exc}")
+
+    # paged_attention: tests/test_paged_attention.py's grid, then the
+    # serving path's full-width shapes
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    worst["paged_attention"] = 0.0
+
+    def check_paged(label, args, dtype, main=False, window=0, span=1,
+                    zero_last=False):
+        y = pa.paged_attention(*args, window=window, q_span=span)
+        torch.cuda.synchronize()
+        yr = paged_attention_ref(*args, window=window, q_span=span)
+        tol = BF16_TOL if dtype == bf16 else PAGED_F32_TOL
+        rel = rel_err(y, yr)
+        abs_err = float((y.float() - yr.float()).abs().max())
+        ok = rel < tol and bool(torch.isfinite(y.float()).all())
+        if zero_last:   # inactive slot: exact zeros on both paths
+            ok = ok and not bool(y[-1].any()) and not bool(yr[-1].any())
+        say(f"  {label}: rel {rel:.3e} (tol {tol:g}) abs {abs_err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+        if main:
+            worst["paged_attention"] = max(worst["paged_attention"], abs_err)
+
+    for B, K, G, r, nb, bs, maxb, win in [
+            (3, 2, 2, 16, 12, 4, 5, 0), (4, 4, 1, 8, 16, 8, 3, 0),
+            (2, 1, 4, 32, 8, 16, 2, 0), (3, 2, 3, 16, 12, 4, 5, 7),
+            (3, 2, 2, 16, 12, 4, 5, 3)]:
+        check_paged(f"paged_attention B={B} K={K} G={G} r={r} bs={bs} "
+                    f"maxb={maxb} window={win} f32",
+                    _paged_case(B, K, G, r, nb, bs, maxb), f32, window=win,
+                    zero_last=True)
+    check_paged("paged_attention B=2 K=2 G=2 r=16 bs=4 maxb=4 bf16",
+                _paged_case(2, 2, 2, 16, 8, 4, 4, dtype=bf16), bf16)
+    for B, K, G, r, nb, bs, maxb, win, span in [
+            (3, 2, 2, 16, 16, 4, 7, 0, 4), (2, 1, 4, 8, 12, 8, 4, 0, 2),
+            (3, 2, 3, 16, 16, 4, 7, 5, 3)]:
+        q, kp, vp, table, ctx = _paged_case(B, K, span * G, r, nb, bs, maxb,
+                                            inactive_last=False)
+        ctx = torch.clamp(torch.minimum(
+            ctx, (table >= 0).sum(1).int() * bs - span), min=0)
+        check_paged(f"paged_attention q_span={span} B={B} K={K} G={G} "
+                    f"r={r} window={win} f32", (q, kp, vp, table, ctx), f32,
+                    window=win, span=span)
+    Bp, Kp, Gp, bsp, maxbp = PAGED_SHAPE
+    for r in (128, KV_RANK):
+        for dt in (bf16, f32):
+            check_paged(f"paged_attention B={Bp} K={Kp} G={Gp} r={r} "
+                        f"bs={bsp} maxb={maxbp} {dt}",
+                        _paged_case(Bp, Kp, Gp, r, Bp * maxbp, bsp, maxbp,
+                                    dtype=dt), dt, main=dt == bf16,
+                        zero_last=True)
+    z = torch.zeros
+    for label, args, span in [
+            ("pool/query mismatch", (z((2, 2, 2, 8), device="cuda"),
+                                     z((4, 4, 2, 8), device="cuda"),
+                                     z((4, 4, 2, 4), device="cuda"),
+                                     z((2, 2), dtype=torch.int32,
+                                       device="cuda"),
+                                     z((2,), dtype=torch.int32,
+                                       device="cuda")), 1),
+            ("q_span 4 with 6 rows", _paged_case(2, 2, 6, 8, 8, 4, 4), 4)]:
+        try:
+            pa.paged_attention(*args, q_span=span)
+            failures.append(f"paged_attention raise: {label}")
+        except ValueError as exc:
+            say(f"  paged_attention {label} raises: {exc}")
+
+    # the registry's flash adaptor zero-pads a feature dim between the
+    # kernel's widths (rank-space CUR-KV prefill at r = 8, 24, 48: folded
+    # queries carry the scale, the kernel gets 1.0), against the kernel's
+    # plain version at the unpadded width
+    from repro_torch.attention import registry
+    for d, dt in [(8, f32), (24, f32), (48, f32), (8, bf16), (24, bf16),
+                  (48, bf16)]:
+        B, S, K, G = 2, 96, 2, 2
+        qg = _randn(gen, (B, S, K, G, d), dt, d ** -0.5)
+        kk = _randn(gen, (B, S, K, d), dt)
+        v = _randn(gen, (B, S, K, d), dt)
+        pos = torch.arange(S, device="cuda")[None].expand(B, S)
+        f0 = fa.launches
+        o = registry._mix_flash_cuda(qg, kk, v, pos, pos, 0, 1.0, chunk=0)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(
+            qg.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, d),
+            kk.transpose(1, 2), v.transpose(1, 2), scale=1.0)
+        ref = ref.reshape(B, K, G, S, d).permute(0, 3, 1, 2, 4)
+        check(f"flash_attention padded d={d} -> "
+              f"{registry._padded_dim(d)} {dt}", o, ref, dt, False)
+        if fa.launches != f0 + 1:
+            failures.append(f"flash padded d={d}: kernel not launched")
     if failures:
         raise SystemExit(f"kernel checks failed: {failures}")
     return worst
@@ -262,6 +397,43 @@ def phase_times():
     rows["flash_attention"] = {"ms": ms, "plain_ms": plain,
                                "library_ms": lib, "bound_ms": bnd,
                                "bound_by": by}
+
+    # paged_attention at the serving path's full-width decode step: every
+    # slot at the longest context phase 7 reaches (all maxb blocks live)
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    B, K, G, bs, maxb = PAGED_SHAPE
+    for r in (128, KV_RANK):
+        q = _randn(gen, (B, K, G, r), bf16)
+        kp = _randn(gen, (B * maxb, bs, K, r), bf16)
+        vp = _randn(gen, (B * maxb, bs, K, r), bf16)
+        table = torch.randperm(B * maxb, device="cuda").reshape(
+            B, maxb).int()
+        ctx = torch.full((B,), maxb * bs - 1, dtype=torch.int32,
+                         device="cuda")
+        ms = median_ms(lambda: pa.paged_attention(q, kp, vp, table, ctx))
+        plain = median_ms(lambda: paged_attention_ref(q, kp, vp, table, ctx))
+        # library yardstick, gather excluded: SDPA over the pool gathered
+        # once into a contiguous (B, K, L, r) view with a boolean mask
+        L = maxb * bs
+        kc = kp[table.long()].reshape(B, L, K, r).transpose(1, 2).contiguous()
+        vc = vp[table.long()].reshape(B, L, K, r).transpose(1, 2).contiguous()
+        mask = (torch.arange(L, device="cuda")[None] <= ctx[:, None].long()
+                )[:, None, None, :]
+        lib = median_ms(lambda: F.scaled_dot_product_attention(
+            q, kc, vc, attn_mask=mask, scale=1.0))
+        live = int((ctx.long() + 1).sum()) * K       # live (slot, head, t)
+        nbytes = 2 * (2 * live * r + 2 * B * K * G * r)
+        flops = 4 * live * G * r
+        bnd, by = bound_ms(nbytes, flops)
+        say(f"  paged_attention B={B} K={K} G={G} r={r} bs={bs} maxb={maxb}"
+            f" ctx={maxb * bs - 1}: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, library (SDPA, gather excluded) {lib:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s")
+        if r == 128:
+            rows["paged_attention"] = {"ms": ms, "plain_ms": plain,
+                                       "library_ms": lib, "bound_ms": bnd,
+                                       "bound_by": by}
     return rows
 
 
@@ -298,6 +470,39 @@ def phase_small():
         f"launches cur_matmul {dcur} flash_attention {dflash}")
     if not (rel < F32_TOL and dcur > 0 and dflash > 0):
         raise SystemExit("small-model check failed")
+
+    # the same model served on the card and on the CPU: greedy tokens
+    import numpy as np
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.launch.serve import make_workload
+    from repro_torch.serving import PagedConfig, Server
+    wl = make_workload(8, cfg.vocab_size, max_new=12)
+    calib_toks = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 64))
+    cpu_params = tree_map(lambda t: t.cpu(), cparams)
+    max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
+    for cur_kv in (False, True):
+        pc = PagedConfig.sized_for(max_len, 4, block_size=16, cur_kv=cur_kv,
+                                   kv_rank=cfg.resolved_head_dim // 2)
+        outs = {}
+        for dev, prm in (("cuda", cparams), ("cpu", cpu_params)):
+            srv = Server(prm, ccfg_model, pc, max_concurrency=4,
+                         calib_tokens=calib_toks, device=dev)
+            p0 = pa.launches
+            for w in wl:
+                srv.submit(w["prompt"], w["max_new_tokens"])
+            srv.drain()
+            outs[dev] = {k: r.out_tokens for k, r in srv.finished.items()}
+            if dev == "cuda":
+                dpaged = pa.launches - p0
+                steps = srv.stats()["n_decode_steps"]
+        same = outs["cuda"] == outs["cpu"]
+        say(f"  served {len(wl)} requests, {'CUR-KV r=' + str(pc.rank(cfg.resolved_head_dim)) if cur_kv else 'dense'} "
+            f"pool: card and CPU greedy tokens "
+            f"{'identical' if same else 'DIFFER'}; paged_attention "
+            f"launches {dpaged} = {steps} decode steps x {cfg.n_layers}")
+        if not (same and dpaged == steps * cfg.n_layers):
+            raise SystemExit("small-model serving check failed")
 
 
 def phase_main():
@@ -394,8 +599,169 @@ def phase_main():
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise SystemExit(f"main path checks failed: {bad}")
-    return {"cur_matmul": main_cur + fold_cur,
-            "flash_attention": main_flash + fold_flash}
+    return ({"cur_matmul": main_cur + fold_cur,
+             "flash_attention": main_flash + fold_flash}, run)
+
+
+def phase_serve(run):
+    """The CURed model of the last cure() run served on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.launch.serve import make_workload, run_continuous
+    from repro_torch.models import forward
+    from repro_torch.obs import loadgen
+    from repro_torch.serving import PagedConfig, Server, runtime
+    from repro_torch.serving import paged_cache as pcache
+    say("== phase 7: serve, llama3.1-8b at full width (CURed, bf16)")
+    params, cfg = run.cured_params, run.cured_cfg
+    V = cfg.vocab_size
+    workloads = {
+        "A": make_workload(16, V, max_new=32),
+        "B": loadgen.generate(loadgen.WorkloadSpec(
+            n_requests=16, arrival="burst",
+            prompt=loadgen.LengthDist(kind="choice",
+                                      values=(256, 512, 1024)),
+            gen=loadgen.LengthDist(kind="fixed", mean=64, hi=64),
+            vocab_size=V, seed=0)),
+    }
+    launches = {"cur_matmul": 0, "flash_attention": 0, "paged_attention": 0}
+    bad = []
+    for wname, wl in workloads.items():
+        max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
+        for cur_kv in (False, True):
+            pc = PagedConfig.sized_for(max_len, 8, block_size=16,
+                                       cur_kv=cur_kv, kv_rank=KV_RANK)
+            srv = Server(params, cfg, pc, max_concurrency=8, device="cuda")
+            torch.cuda.synchronize()
+            cm.launches = fa.launches = pa.launches = 0
+            finished, st = run_continuous(srv, wl, verbose=False)
+            torch.cuda.synchronize()
+            n = {"cur_matmul": cm.launches, "flash_attention": fa.launches,
+                 "paged_attention": pa.launches}
+            for k in launches:
+                launches[k] += n[k]
+            snap = srv.obs.snapshot()
+            step_p50 = snap["repro_serving_decode_step_s"]["p50"]
+            label = (f"{wname} {'CUR-KV r=' + str(KV_RANK) if cur_kv else 'dense'}")
+            say(f"  {label}: {len(wl)} requests, {st['tokens_generated']} "
+                f"tokens, {st['tokens_per_s']:.1f} tok/s (busy "
+                f"{st['tokens_per_s_busy']:.1f}); TTFT p50 "
+                f"{st['ttft_p50_s'] * 1e3:.1f} p99 "
+                f"{st['ttft_p99_s'] * 1e3:.1f} ms; TPOT p50 "
+                f"{st['tpot_p50_s'] * 1e3:.2f} p99 "
+                f"{st['tpot_p99_s'] * 1e3:.2f} ms; decode window step "
+                f"median {step_p50 * 1e3:.2f} ms; steps prefill "
+                f"{st['n_prefill_steps']} decode {st['n_decode_steps']}; "
+                f"pool {st['cache_bytes']} bytes "
+                f"({pc.n_blocks} blocks); gathered "
+                f"{st['gathered_bytes_per_step']} bytes/step; launches "
+                f"{json.dumps(n)}")
+            checks = {
+                "every request finished by length": len(finished) == len(wl)
+                and all(r.finish_reason == "length"
+                        for r in finished.values()),
+                "paged_attention launches == decode steps x 32":
+                    n["paged_attention"] == st["n_decode_steps"]
+                    * cfg.n_layers,
+                "flash_attention launched": n["flash_attention"] > 0,
+                "cur_matmul launched": n["cur_matmul"] > 0,
+                "allocator drained": srv.scheduler.alloc.n_free
+                    == pc.n_blocks,
+                "nothing gathered": st["gathered_bytes_per_step"] == 0,
+            }
+            if not cur_kv:
+                # prefill logits of request 0 against the folded forward
+                prompt = wl[0]["prompt"]
+                cache = pcache.init_paged_cache(cfg, pc, "cuda")
+                B = 8
+                S = 16
+                while S < len(prompt):
+                    S *= 2
+                toks = np.zeros((B, S), np.int64)
+                toks[0, :len(prompt)] = prompt
+                lengths = np.zeros((B,), np.int64)
+                lengths[0] = len(prompt)
+                table = np.full((B, pc.max_blocks_per_seq), -1, np.int32)
+                nblk = pc.blocks_for(len(prompt) + 1)
+                table[0, :nblk] = np.arange(nblk)
+                logits, _ = runtime.paged_prefill(
+                    params, cfg, pc, torch.from_numpy(toks),
+                    torch.from_numpy(lengths), cache,
+                    torch.from_numpy(table))
+                ref = forward(params, cfg, {"tokens": torch.tensor(
+                    [prompt], device="cuda")})[0, -1]
+                rel = rel_err(logits[0], ref)
+                say(f"  {label}: request 0 prefill logits vs folded "
+                    f"forward() rel {rel:.3e} (tol {BF16_TOL:g})")
+                checks["prefill logits match forward()"] = rel < BF16_TOL
+                del cache
+            for k, ok in checks.items():
+                if not ok:
+                    bad.append(f"{label}: {k}")
+            del srv
+            torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit(f"serve checks failed: {bad}")
+    profile_decode(params, cfg, workloads["B"])
+    return launches
+
+
+def profile_decode(params, cfg, wl):
+    """Where a decode window's time goes: one 16-step window of 8 slots at
+    workload B's prompts (dense pool) timed alone, then the next one under
+    torch.profiler. Prints the windows' wall times, the device's busy and
+    idle share (kernel time over traced wall time) and the kernels that
+    took the most device time. A measurement, not a check."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import PagedConfig, Server
+    reqs = wl[:8]
+    max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in reqs)
+    pc = PagedConfig.sized_for(max_len, 8, block_size=16)
+    srv = Server(params, cfg, pc, max_concurrency=8, device="cuda")
+    for w in reqs:
+        srv.submit(w["prompt"], w["max_new_tokens"])
+    srv.step()                                  # the prefill of all 8
+    torch.cuda.synchronize()
+    steps0 = srv.n_decode_steps
+    t0 = time.perf_counter()
+    srv.step()                                  # a decode window, untraced
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    plain_steps = srv.n_decode_steps - steps0
+    ctx = srv.scheduler.ctx_lens()
+    steps0 = srv.n_decode_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = srv.n_decode_steps - steps0
+    # kernels only (the aten ops above them carry the same device time)
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    say(f"  decode window untraced: {plain_steps} steps, wall "
+        f"{plain_wall * 1e3:.1f} ms ({plain_wall * 1e3 / plain_steps:.2f} "
+        f"ms/step)")
+    say(f"  profile: the next window, {steps} steps, 8 slots at ctx "
+        f"{int(ctx.min())}-{int(ctx.max())}: wall {wall * 1e3:.1f} ms "
+        f"({wall * 1e3 / steps:.2f} ms/step, traced), kernels busy "
+        f"{busy_us / 1e3:.1f} ms, device idle share "
+        f"{1 - busy_us / 1e6 / wall:.3f}")
+    if not rows:
+        say("  profile: the profiler saw no device time")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        say(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d} x {e.key[:90]}")
+    del srv
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -404,18 +770,39 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build  # noqa: F401 (fails off-repo)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+                    help="comma-separated phases to run (all by default)")
+    phases = {int(p) for p in ap.parse_args().phases.split(",")}
     smi = phase_card()
-    phase_build()
-    errs = phase_kernels()
-    times = phase_times()
-    phase_small()
-    launches = phase_main()
+    if 2 in phases:
+        phase_build()
+    errs = phase_kernels() if 3 in phases else None
+    times = phase_times() if 4 in phases else None
+    if 5 in phases:
+        phase_small()
+    if 6 in phases:
+        main_launches, run = phase_main()
+        if 7 in phases:
+            serve_launches = phase_serve(run)
+    if phases != set(range(1, 8)):
+        say(f"ran phases {sorted(phases)} only: no kernel table")
+        return 1
+    # launches on the main paths: the last cure() run with both
+    # perplexity passes (phase 6) and the four serve runs (phase 7)
+    launches = {k: main_launches.get(k, 0) + serve_launches[k]
+                for k in serve_launches}
+    say(f"launches phase 6 {json.dumps(main_launches)}, phase 7 "
+        f"{json.dumps(serve_launches)}")
     meta = {
         "cur_matmul": ("src/repro_torch/csrc/cur_matmul.cu",
                        "src/repro/kernels/cur_matmul/cur_matmul.py:48"),
         "flash_attention": (
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:82"),
+        "paged_attention": (
+            "src/repro_torch/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention/paged_attention.py:108"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

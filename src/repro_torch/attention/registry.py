@@ -1,22 +1,34 @@
-"""Attention-backend registry of the port: the ``mix`` variant.
+"""Attention-backend registry of the port.
 
-``mix`` is full-sequence attention over in-flight K/V (forward,
-calibration, evaluation). Backends in resolution order, as in the JAX
-package:
+Variants and their backends in resolution order, as in the JAX package:
 
-  ``flash_cuda``  the hand-written CUDA kernel, for CUDA tensors
-  ``dense``       the dense masked softmax (oracle; S <= ``DENSE_MAX``)
-  ``banded``      chunked sliding window (window > 0)
-  ``flash``       chunked online softmax (the fallback)
+  ``mix``            full-sequence attention over in-flight K/V (forward,
+                     prefill, calibration, evaluation):
+      ``flash_cuda``  the hand-written CUDA kernel, for CUDA tensors (the
+                      feature dim is zero-padded up to a kernel width)
+      ``dense``       the dense masked softmax (oracle; S <= ``DENSE_MAX``)
+      ``banded``      chunked sliding window (window > 0)
+      ``flash``       chunked online softmax (the fallback)
+  ``paged_decode``   queries against the block-table pool, in rank space:
+      ``paged_cuda``  the hand-written CUDA kernel, for CUDA tensors
+      ``paged_ref``   the gather-based plain version, for CPU tensors
+  ``paged_prefill``  prompt attention + pool payload for CUR-KV pools
+                     (``rank_fold``, then the ``reconstruct`` oracle;
+                     registered by ``repro_torch.attention``)
 
-The paged variants wait for the serving slice.
+The choice depends only on where the tensors lie: the port has no
+environment switches.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, List, Optional
 
+import torch
+
 from repro_torch.attention import xla
+from repro_torch.kernels.paged_attention.ref import (     # noqa: F401
+    fold_q, unfold_o)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,15 +68,32 @@ def resolve(variant: str, **ctx) -> Backend:
     raise LookupError(f"no available backend for {variant!r} with {ctx}")
 
 
+def _padded_dim(d: int) -> int:
+    """The smallest kernel width >= d; d above the largest raises."""
+    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
+    for w in HEAD_DIMS:
+        if d <= w:
+            return w
+    raise ValueError(f"flash_attention: head dim {d} above {HEAD_DIMS[-1]}")
+
+
 def _mix_flash_cuda(q, k, v, q_pos, kv_pos, window, scale, *, chunk):
     """(B,S,K,G,d) grouped queries -> the kernel's (B,H,S,d) layout and
-    back. Positions are contiguous from 0 at every call site."""
+    back. Positions are contiguous from 0 at every call site. A feature
+    dim between the kernel's widths (a CUR-KV rank r) is zero-padded up to
+    the next one and the output sliced back: zero columns add nothing to
+    the scores, and ``scale`` is passed explicitly, so this is exact."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     B, S, K, G, d = q.shape
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, d)
-    o = flash_attention_op(qh, k.transpose(1, 2), v.transpose(1, 2),
-                           causal=True, window=window, scale=scale)
-    return o.reshape(B, K, G, S, d).permute(0, 3, 1, 2, 4)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    dp = _padded_dim(d)
+    if dp != d:
+        pad = (0, dp - d)
+        qh, kh, vh = (torch.nn.functional.pad(t, pad) for t in (qh, kh, vh))
+    o = flash_attention_op(qh, kh, vh, causal=True, window=window,
+                           scale=scale)
+    return o[..., :d].reshape(B, K, G, S, d).permute(0, 3, 1, 2, 4)
 
 
 def _mix_dense(q, k, v, q_pos, kv_pos, window, scale, *, chunk):
@@ -103,3 +132,49 @@ def mix(qg, k, v, positions, window: int, scale: float, cfg=None, *,
                  dense_max=dense_max if dense_max is not None
                  else xla.DENSE_MAX)
     return be.fn(qg, k, v, positions, positions, window, scale, chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# paged_decode variant: queries against the block-table pool (rank space)
+# ---------------------------------------------------------------------------
+
+def _paged_cuda(qf, k_pool, v_pool, table, ctx_len, *, window, q_span):
+    from repro_torch.kernels.paged_attention.ops import paged_attention_op
+    return paged_attention_op(qf, k_pool, v_pool, table, ctx_len,
+                              window=window, q_span=q_span)
+
+
+def _paged_ref(qf, k_pool, v_pool, table, ctx_len, *, window, q_span):
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    return paged_attention_ref(qf, k_pool, v_pool, table, ctx_len,
+                               window=window, q_span=q_span)
+
+
+register("paged_decode", Backend(
+    "paged_cuda", Caps(window=True), _paged_cuda,
+    available=lambda ctx: ctx.get("on_cuda", False)))
+register("paged_decode", Backend("paged_ref", Caps(window=True), _paged_ref))
+
+
+def resolve_paged(on_cuda: bool) -> Backend:
+    """The ``paged_decode`` backend for a pool on a CUDA device or not."""
+    return resolve("paged_decode", on_cuda=on_cuda)
+
+
+# ---------------------------------------------------------------------------
+# paged_prefill variant (backends registered by repro_torch.attention,
+# which wires in repro_torch.attention.prefill without an import cycle)
+# ---------------------------------------------------------------------------
+
+def resolve_prefill(force: Optional[str] = None) -> Backend:
+    """CUR-KV prompt attention backend: ``rank_fold`` unless ``force`` is
+    "reconstruct" (the full-head-dim oracle, for tests)."""
+    mode = "auto" if force is None else force
+    if mode not in ("auto", "fold", "rank_fold", "reconstruct"):
+        raise ValueError(
+            f"prefill backend must be auto|fold|reconstruct, got {mode!r}")
+    name = "reconstruct" if mode == "reconstruct" else "rank_fold"
+    for be in _REGISTRY.get("paged_prefill", []):
+        if be.name == name:
+            return be
+    raise LookupError(f"paged_prefill backend {name!r} not registered")

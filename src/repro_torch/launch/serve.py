@@ -1,0 +1,302 @@
+"""Serving entry point: continuous-batching runtime over an (optionally
+CUR-compressed) model with a paged, optionally CUR-compressed KV cache.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.1-8b \
+      --smoke --cur-kv --device cpu
+
+``--smoke`` drives a mixed workload -- ragged prompt lengths, staggered
+arrivals, per-request generation budgets -- through
+``repro_torch.serving.Server``. On a CUDA device (the default) decode
+attention runs the ``paged_attention`` kernel and prefill the
+``flash_attention`` and ``cur_matmul`` kernels.
+
+Not ported yet (they raise): the static-batch engine (``--legacy``, and
+non-attention archs), speculative decoding (``--draft``), fault injection
+(``--chaos``) and profiler capture (``--prof``). ``--paged-kernel`` and
+``--prefill-backend`` set environment switches the port does not have:
+the kernels run for CUDA tensors, and CUR-KV prefill is rank-space.
+"""
+import argparse
+import math
+import os
+
+import numpy as np
+
+from repro_torch import obs, resolve_device
+from repro_torch.configs import ARCHS, get_config, get_smoke
+from repro_torch.configs.base import CURConfig
+from repro_torch.core import calibrate, compress_model
+from repro_torch.data.tokens import DataConfig, SyntheticLM
+from repro_torch.models import init_params
+from repro_torch.obs import loadgen, slo as slo_mod
+from repro_torch.serving import PagedConfig, ResilienceConfig, Server
+from repro_torch.serving.paged_cache import supports as paged_supports
+
+
+def make_workload(n_requests: int, vocab: int, *, max_new: int = 16,
+                  seed: int = 0, arrival_spacing_s: float = 0.02):
+    """Mixed smoke workload: ragged prompts (8..40 tokens), per-request
+    new-token budgets (4..max_new), staggered arrival offsets."""
+    rng = np.random.RandomState(seed)
+    lo = max(1, min(4, max_new))
+    reqs = []
+    for i in range(n_requests):
+        plen = int(rng.choice([8, 12, 16, 24, 32, 40]))
+        n_new = int(rng.randint(lo, max_new + 1))
+        reqs.append({
+            "prompt": rng.randint(0, vocab, size=plen).tolist(),
+            "max_new_tokens": n_new,
+            "arrival_offset_s": i * arrival_spacing_s,
+        })
+    return reqs
+
+
+def run_continuous(server: Server, workload, *, temperature: float = 0.0,
+                   verbose: bool = True):
+    """Drive the engine against the workload's virtual-time arrivals
+    (open-loop: each request is stamped with its scheduled arrival, so
+    injection lateness lands in queue wait). Returns (finished, stats)."""
+    loadgen.drive(server, workload, temperature=temperature)
+    stats = server.stats()
+    if verbose:
+        print(f"completed {stats['completed']} requests, "
+              f"{stats['tokens_generated']} tokens in "
+              f"{stats['elapsed_s']:.2f}s "
+              f"({stats['tokens_per_s']:.1f} tok/s)")
+        print(f"ttft mean {stats['ttft_mean_s']*1e3:.0f}ms "
+              f"max {stats['ttft_max_s']*1e3:.0f}ms | queue depth "
+              f"mean {stats['queue_depth_mean']:.1f} "
+              f"max {stats['queue_depth_max']} | "
+              f"steps prefill={stats['n_prefill_steps']} "
+              f"decode={stats['n_decode_steps']} "
+              f"preempt={stats['n_preemptions']}")
+        print(f"decode phase: {stats['decode_tok_s']:.1f} tok/s "
+              f"({stats['decode_time_s']:.2f}s) | gather "
+              f"{stats['gathered_bytes_per_step']/2**10:.1f} KiB/step")
+        print(f"kv cache: {stats['cache_bytes']/2**20:.2f} MiB")
+    return server.finished, stats
+
+
+def _not_ported(args) -> None:
+    later = [("--legacy (static-batch engine)", args.legacy),
+             ("--draft (speculative decoding)", args.draft),
+             ("--chaos (fault injection)", args.chaos),
+             ("--prof (profiler capture)", args.prof),
+             ("--paged-kernel (no environment switch in the port)",
+              args.paged_kernel),
+             ("--prefill-backend (no environment switch in the port)",
+              args.prefill_backend)]
+    for flag, value in later:
+        if value:
+            raise NotImplementedError(
+                f"{flag} is not yet ported to repro_torch (ROADMAP Queue 1)")
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b", choices=list(ARCHS))
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="calibration batch of --cur-layers")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="calibration length of --cur-layers")
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--n-requests", type=int, default=12)
+    ap.add_argument("--cur-layers", type=int, default=0,
+                    help="CUR-compress this many layers (weights)")
+    ap.add_argument("--cur-kv", action="store_true",
+                    help="CUR-compress the paged KV cache")
+    ap.add_argument("--kv-rank", type=int, default=0,
+                    help="CUR-KV rank (0: head_dim // 2)")
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--max-concurrency", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--paged-kernel", default=None,
+                    choices=["auto", "on", "off"], help="not yet ported")
+    ap.add_argument("--prefill-backend", default=None,
+                    choices=["auto", "fold", "reconstruct"],
+                    help="not yet ported")
+    ap.add_argument("--legacy", action="store_true", help="not yet ported")
+    ap.add_argument("--draft", default=None, help="not yet ported")
+    ap.add_argument("--spec-k", type=int, default=4, help="not yet ported")
+    ap.add_argument("--draft-kv-rank", type=int, default=0,
+                    help="not yet ported")
+    # load generation (repro_torch.obs.loadgen) + SLO evaluation
+    ap.add_argument("--arrival", default="staggered",
+                    choices=["staggered", "burst", "poisson", "gamma",
+                             "bursty", "uniform"],
+                    help="arrival process: 'staggered' keeps the fixed-"
+                         "spacing smoke workload; the rest are seeded "
+                         "loadgen processes driven open-loop at --rate QPS")
+    ap.add_argument("--rate", type=float, default=8.0,
+                    help="offered rate (requests/s) for loadgen arrivals")
+    ap.add_argument("--shared-prefix", type=float, default=0.0,
+                    help="fraction of requests sharing one of 4 fixed "
+                         "16-token prompt prefixes")
+    ap.add_argument("--workload-trace", default=None,
+                    help="replay a loadgen JSONL trace instead of "
+                         "generating a workload")
+    ap.add_argument("--save-trace", default=None,
+                    help="save the generated workload as a JSONL trace")
+    ap.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                    help="TTFT target (ms); with --slo-tpot-ms, prints "
+                         "SLO attainment + goodput after the run")
+    ap.add_argument("--slo-tpot-ms", type=float, default=0.0,
+                    help="TPOT target (ms) for the SLO evaluation")
+    # resilience (repro_torch.serving.resilience)
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bound the admission queue (0: unbounded)")
+    ap.add_argument("--overload-policy", default="reject",
+                    choices=["reject", "shed-oldest", "priority"])
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="total per-request deadline (ms from arrival)")
+    ap.add_argument("--ttft-deadline-ms", type=float, default=0.0,
+                    help="TTFT deadline (ms from arrival)")
+    ap.add_argument("--watchdog-s", type=float, default=0.0,
+                    help="wall-clock bound per engine step (0: off)")
+    ap.add_argument("--chaos", default=None, metavar="PLAN.json",
+                    help="not yet ported")
+    # observability (repro_torch.obs)
+    ap.add_argument("--obs", action="store_true",
+                    help="route serving metrics through the process-wide "
+                         "registry and write metrics.json/.prom + "
+                         "events.jsonl to --obs-out")
+    ap.add_argument("--obs-out", default="results/obs/serve",
+                    help="directory for obs artifacts")
+    ap.add_argument("--trace", action="store_true",
+                    help="record engine + per-request lifecycle spans "
+                         "and write a Chrome/Perfetto trace.json")
+    ap.add_argument("--prof", action="store_true", help="not yet ported")
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    _not_ported(args)
+    device = resolve_device(args.device)
+    if args.obs:
+        obs.enable()
+    tracer = obs.Tracer(enabled=args.trace, process="repro_torch.serve")
+
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.input_mode != "tokens":
+        raise SystemExit(f"{args.arch} uses the embeddings stub")
+    if not paged_supports(cfg):
+        raise NotImplementedError(
+            f"{args.arch}: non-attention mixers need the static-batch "
+            f"engine, not yet ported to repro_torch (ROADMAP Queue 1)")
+    params = init_params(0, cfg, device)
+
+    if args.cur_layers:
+        ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=args.prompt_len,
+                                    global_batch=args.batch), device)
+        calib = calibrate(params, cfg, [ds.batch_at(1)])
+        params, cfg, info = compress_model(
+            params, cfg,
+            CURConfig(r_max=32, n_compress_layers=args.cur_layers,
+                      fold_u=True),
+            calib)
+        print(f"CUR-compressed {info.layers} "
+              f"({info.params_saved/1e3:.0f}k params saved)")
+
+    wspec = None
+    if args.workload_trace:
+        workload = loadgen.load_trace(args.workload_trace)
+        print(f"replaying {len(workload)} requests from "
+              f"{args.workload_trace}")
+    elif args.arrival != "staggered":
+        wspec = loadgen.WorkloadSpec(
+            n_requests=args.n_requests, rate_qps=args.rate,
+            arrival=args.arrival,
+            gen=loadgen.LengthDist(kind="fixed", mean=args.new_tokens,
+                                   hi=max(1, args.new_tokens)),
+            vocab_size=cfg.vocab_size,
+            shared_prefix_fraction=args.shared_prefix)
+        workload = loadgen.generate(wspec)
+        print(f"loadgen: {args.arrival} arrivals at {args.rate:g} rps "
+              f"({len(workload)} requests)")
+    else:
+        workload = make_workload(args.n_requests, cfg.vocab_size,
+                                 max_new=args.new_tokens)
+    if args.save_trace:
+        loadgen.save_trace(args.save_trace, workload, spec=wspec)
+        print(f"workload trace -> {args.save_trace}")
+    max_len = max(len(r["prompt"]) + r["max_new_tokens"]
+                  for r in workload)
+    kv_rank = 0
+    if args.cur_kv:
+        kv_rank = args.kv_rank or max(1, cfg.resolved_head_dim // 2)
+    pc = PagedConfig.sized_for(
+        max_len, args.max_concurrency, block_size=args.block_size,
+        cur_kv=args.cur_kv, kv_rank=kv_rank)
+    res = ResilienceConfig(
+        max_queue=args.max_queue, overload_policy=args.overload_policy,
+        ttft_deadline_s=args.ttft_deadline_ms / 1e3,
+        deadline_s=args.deadline_ms / 1e3, watchdog_s=args.watchdog_s)
+    server = Server(params, cfg, pc, max_concurrency=args.max_concurrency,
+                    obs=obs.default_registry() if args.obs else None,
+                    tracer=tracer, resilience=res, device=device)
+    print(f"serving {len(workload)} requests on {device} "
+          f"(concurrency {args.max_concurrency}, block {args.block_size}, "
+          f"pool {pc.n_blocks} blocks, cur_kv={args.cur_kv}, "
+          f"paged_decode={server.stats()['attn_backends']['paged_decode']}, "
+          f"prefill={server._prefill_backend}"
+          + (f", window={server.window}" if server.window else "") + ")")
+    finished, stats = run_continuous(server, workload,
+                                     temperature=args.temperature)
+    failed = stats.get("failed", {})
+    if any(failed.values()) or stats.get("degradation_transitions"):
+        print(f"resilience: failed {failed} | degradation level "
+              f"{stats['degradation_level']} "
+              f"({stats['degradation_transitions']} transitions)")
+    print(f"slo: ttft p50 {stats['ttft_p50_s']*1e3:.0f}ms "
+          f"p99 {stats['ttft_p99_s']*1e3:.0f}ms | tpot "
+          f"p50 {stats['tpot_p50_s']*1e3:.1f}ms "
+          f"p99 {stats['tpot_p99_s']*1e3:.1f}ms | queue-wait "
+          f"p50 {stats['queue_wait_p50_s']*1e3:.0f}ms "
+          f"p99 {stats['queue_wait_p99_s']*1e3:.0f}ms | "
+          f"busy {stats['tokens_per_s_busy']:.1f} tok/s "
+          f"(wall {stats['tokens_per_s']:.1f})")
+    if args.slo_ttft_ms or args.slo_tpot_ms:
+        spec = slo_mod.SLOSpec(
+            ttft_s=args.slo_ttft_ms / 1e3 or math.inf,
+            tpot_s=args.slo_tpot_ms / 1e3 or math.inf)
+        rep = slo_mod.evaluate(finished.values(), spec,
+                               stats["elapsed_s"])
+        dec = slo_mod.decompose_stats(stats)
+        print(f"slo spec (ttft<={args.slo_ttft_ms:g}ms, "
+              f"tpot<={args.slo_tpot_ms:g}ms): attainment "
+              f"{rep.attainment:.3f} ({rep.n_meeting}/{rep.n_requests})"
+              f" | goodput {rep.goodput_tok_s:.1f} tok/s "
+              f"(throughput {rep.throughput_tok_s:.1f})")
+        print(f"latency split: queue {dec['queue_wait_frac']:.0%} "
+              f"prefill {dec['prefill_frac']:.0%} "
+              f"decode {dec['decode_frac']:.0%}")
+    first = finished[min(finished)]
+    print(f"request 0: {len(first.out_tokens)} tokens "
+          f"{first.out_tokens[:8]}"
+          f"{'...' if len(first.out_tokens) > 8 else ''}")
+    if args.obs or args.trace:
+        os.makedirs(args.obs_out, exist_ok=True)
+        if args.obs:
+            log = obs.JsonlLog(os.path.join(args.obs_out, "events.jsonl"))
+            for rid in sorted(finished):
+                r = finished[rid]
+                log.log("request", rid=rid, tokens=len(r.out_tokens),
+                        ttft_s=r.ttft, reason=r.finish_reason,
+                        preempted=r.n_preempted)
+            log.log("stats", **stats)
+            log.close()
+            print(f"  obs events -> {log.path}")
+        written = obs.write_all(
+            args.obs_out, registry=server.obs if args.obs else None,
+            tracer=tracer)
+        for kind, path in written.items():
+            print(f"  obs {kind} -> {path}")
+    return stats
+
+
+if __name__ == "__main__":
+    main()

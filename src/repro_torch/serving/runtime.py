@@ -1,0 +1,283 @@
+"""Paged model steps: prefill / decode over the block-table KV pool.
+
+Mirrors ``models.model``'s forward but threads the shared paged pool.
+Both entry points run over a fixed ``B = max_concurrency`` slot batch
+(inactive rows are masked). Ragged prompt batches are padded up to
+power-of-two buckets by the server, which keeps the flash kernel's
+sequence lengths few.
+
+Attention -- prefill AND decode -- runs in **rank space**: the key link
+matrix is folded into the query (``q~ = scale * q @ Uk^T``) so scores are
+taken directly against the r-dim stored keys, and the value link matrix
+is applied after the softmax (``o = (p @ v_r) @ Uv``). Decode resolves
+the registry's ``paged_decode`` variant (the CUDA kernel for a pool on
+the card, the gather-based plain version on the CPU); CUR-KV prompt
+attention resolves ``paged_prefill`` (``rank_fold`` by default).
+
+``paged_verify`` (the speculative verify step) comes with the speculative
+slice. The pools are written in place. Block tables, context lengths and masks
+may be CPU tensors (the scheduler's arrays are host arrays): the write
+rows are then found on the host, and a decode window syncs the device
+once, when its sampled tokens are read.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from repro_torch.attention.prefill import (         # noqa: F401 (re-export)
+    reconstructed_bytes_per_prefill)
+from repro_torch.attention.registry import (        # noqa: F401 (re-export)
+    fold_q, resolve_paged, resolve_prefill, unfold_o)
+from repro_torch.configs.base import ATTN_LOCAL, MLP, MOE, ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import apply_w, norm
+from repro_torch.models.mlp import mlp_forward
+from repro_torch.models.model import _embed, _unembed, iter_layer_params
+from repro_torch.models.model import torch_dtype
+from repro_torch.serving import paged_cache as pcache
+from repro_torch.serving.sampling import (
+    greedy_tokens, request_generator, sample_tokens)
+
+
+def _paged_attn(qg, k_pool, v_pool, table, ctx_len, uk, uv, scale,
+                window: int, q_span: int = 1):
+    """Rank-space paged attention for one layer's queries.
+
+    qg (B, K, G, hd) grouped queries; pools (n_blocks, bs, K, r); table
+    and ctx_len on the pools' device. Returns (B, K, G, hd)."""
+    be = resolve_paged(k_pool.is_cuda)
+    qf = fold_q(qg, uk, scale)                    # (B, K, G, r)
+    o_r = be.fn(qf, k_pool, v_pool, table, ctx_len, window=window,
+                q_span=q_span)
+    return unfold_o(o_r, uv)                      # (B, K, G, hd)
+
+
+def gathered_bytes_per_step(cfg: ModelConfig, pc: pcache.PagedConfig,
+                            batch: int, on_cuda: bool) -> int:
+    """Device bytes the decode step materializes out of the pool per
+    engine step: 0 on the kernel path (a pool on the card), else k+v
+    gathers of the full table window for every attention layer."""
+    if on_cuda:
+        return 0
+    L = pcache._attn_layers(cfg)
+    r = pc.rank(cfg.resolved_head_dim)
+    itemsize = torch.tensor([], dtype=torch_dtype(cfg.dtype)).element_size()
+    return 2 * L * batch * pc.max_len * cfg.n_kv_heads * r * itemsize
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    if not pcache.supports(cfg):
+        raise ValueError(
+            f"{cfg.name}: paged serving supports attention mixers only "
+            "(mamba state is not paged)")
+
+
+def _layer_proj(cache: dict, li: int):
+    """(qk, uk, qv, uv) for layer li, or Nones when not in CUR-KV mode."""
+    proj = cache.get("proj")
+    if proj is None:
+        return None, None, None, None
+    return (proj["qk"][li], proj["uk"][li],
+            proj["qv"][li], proj["uv"][li])
+
+
+def _channel_mix(x, p, spec, cfg):
+    if spec.mlp == MLP:
+        x = x + mlp_forward(norm(x, p.get("norm2"), cfg), p, cfg)
+    elif spec.mlp == MOE:
+        raise NotImplementedError(
+            "MoE blocks are not yet ported to repro_torch; they come with "
+            "the other-families slice (models/moe.py)")
+    return x
+
+
+def _device_of(cache: dict) -> torch.device:
+    return cache["k"].device
+
+
+def _to(t: torch.Tensor, device) -> torch.Tensor:
+    return t.to(device, non_blocking=True)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def paged_prefill(params, cfg: ModelConfig, pc: pcache.PagedConfig,
+                  tokens: torch.Tensor, lengths: torch.Tensor,
+                  cache: dict, table: torch.Tensor, backend=None):
+    """Process padded ragged prompts, writing K/V into the pool in place.
+
+    tokens (B, S) right-padded; lengths (B,) true prompt lengths (0 =
+    inactive slot); table (B, maxb) block ids (-1 pad). Returns
+    (last-real-token logits (B, V), cache).
+
+    CUR-KV pools resolve the registry's ``paged_prefill`` variant
+    (``backend`` pins "fold" or "reconstruct"); dense pools attend the raw
+    K/V, which is the payload."""
+    check_supported(cfg)
+    dev = _device_of(cache)
+    tokens = _to(tokens.long(), dev)
+    x = _embed(params, cfg, {"tokens": tokens})
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+        B, S)
+    scale = cfg.resolved_head_dim ** -0.5
+    last = _to(torch.clamp(lengths.long() - 1, 0, S - 1), dev)
+    rows = pcache.rows_to(
+        pcache.prompt_rows(table, lengths, S, pc.block_size), dev)
+    be = resolve_prefill(backend)
+    for li, spec, p in iter_layer_params(params, cfg):
+        win = cfg.window if spec.mixer == ATTN_LOCAL else 0
+        h = norm(x, p.get("norm1"), cfg)
+        q, k, v = attn.qkv_project(h, p, cfg, positions)
+        qg = attn._group_q(q, cfg.n_kv_heads)
+        qk, uk, qv, uv = _layer_proj(cache, li)
+        if qk is None:                            # dense pool
+            o = attn._mix(qg, k, v, positions, win, scale, cfg)
+            kc, vc = k, v
+        else:                                     # CUR-KV pool
+            o, kc, vc = be.fn(qg, k, v, positions, win, scale, cfg,
+                              (qk, uk, qv, uv))
+        pcache.scatter_rows(cache["k"][li], kc, rows)
+        pcache.scatter_rows(cache["v"][li], vc, rows)
+        x = x + apply_w(o.reshape(B, S, -1), p["wo"])
+        x = _channel_mix(x, p, spec, cfg)
+    x = norm(x, params.get("final_norm"), cfg)
+    x_last = x[torch.arange(B, device=dev), last][:, None]
+    logits = _unembed(params, cfg, x_last)[:, 0, :]
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def paged_decode(params, cfg: ModelConfig, pc: pcache.PagedConfig,
+                 tokens: torch.Tensor, cache: dict, table: torch.Tensor,
+                 ctx_len: torch.Tensor, active: torch.Tensor):
+    """One decode step for every active slot, writing the pool in place.
+
+    tokens (B, 1) last sampled token per slot; ctx_len (B,) tokens already
+    in cache (the new token is written at that position); active (B,)
+    bool. Returns (logits (B, V), cache)."""
+    check_supported(cfg)
+    dev = _device_of(cache)
+    x = _embed(params, cfg, {"tokens": _to(tokens.long(), dev)})
+    B = x.shape[0]
+    rows = pcache.rows_to(
+        pcache.token_rows(table, ctx_len, active, pc.block_size), dev)
+    table_d = _to(table.to(torch.int32), dev)
+    ctx_d = _to(ctx_len.to(torch.int32), dev)
+    pos = ctx_d[:, None]                                  # (B, 1)
+    scale = cfg.resolved_head_dim ** -0.5
+    for li, spec, p in iter_layer_params(params, cfg):
+        win = cfg.window if spec.mixer == ATTN_LOCAL else 0
+        h = norm(x, p.get("norm1"), cfg)
+        q, k, v = attn.qkv_project(h, p, cfg, pos)        # (B, 1, ., hd)
+        qk, uk, qv, uv = _layer_proj(cache, li)
+        pool_k = pcache.scatter_rows(
+            cache["k"][li], pcache.compress_kv(k[:, 0], qk), rows)
+        pool_v = pcache.scatter_rows(
+            cache["v"][li], pcache.compress_kv(v[:, 0], qv), rows)
+        qg = attn._group_q(q, cfg.n_kv_heads)[:, 0]       # (B, K, G, hd)
+        o = _paged_attn(qg, pool_k, pool_v, table_d, ctx_d, uk, uv, scale,
+                        win)
+        x = x + apply_w(o.reshape(B, 1, -1), p["wo"])
+        x = _channel_mix(x, p, spec, cfg)
+    x = norm(x, params.get("final_norm"), cfg)
+    logits = _unembed(params, cfg, x)[:, 0, :]
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# multi-step decode (one host sync per window)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def paged_decode_scan(params, cfg: ModelConfig, pc: pcache.PagedConfig,
+                      tokens, cache, table, ctx, active, budgets,
+                      sampling, gen_starts, n_steps: int,
+                      greedy: bool = False):
+    """``n_steps`` decode+sample iterations, a host loop over
+    :func:`paged_decode`. Sampled tokens feed the next step on the device;
+    the caller reads the window's tokens once, at its end. Rows whose
+    generation budget fills mid-window freeze: their pool writes are
+    masked off and the caller discards their surplus tokens.
+
+    table/ctx/active/budgets/gen_starts (B,) host (CPU) tensors;
+    ``sampling`` = (seeds, rids, temps, top_ks, top_ps), one entry per
+    slot. Row ``b`` of step ``i`` draws from
+    ``request_generator(seed, rid, gen_starts[b] + i)``, so windows sample
+    the same stream as single steps. ``greedy`` takes the argmax path.
+    Returns (tokens (n_steps, B), logprobs (n_steps, B), cache) on the
+    cache's device."""
+    dev = _device_of(cache)
+    toks = _to(tokens, dev)
+    ctx = ctx.clone()
+    out_t, out_lp = [], []
+    for i in range(n_steps):
+        live = active & (gen_starts + i < budgets)
+        logits, cache = paged_decode(params, cfg, pc, toks, cache, table,
+                                     ctx, live)
+        if greedy:
+            s_toks, s_lps = greedy_tokens(logits)
+        else:
+            seeds, rids, temps, top_ks, top_ps = sampling
+            gens = [request_generator(int(seeds[b]), int(rids[b]),
+                                      int(gen_starts[b]) + i, dev)
+                    for b in range(logits.shape[0])]
+            s_toks, s_lps = sample_tokens(logits, _to(temps, dev),
+                                          _to(top_ks, dev),
+                                          _to(top_ps, dev), gens)
+        out_t.append(s_toks)
+        out_lp.append(s_lps)
+        toks = s_toks[:, None]
+        ctx = ctx + 1
+    return torch.stack(out_t), torch.stack(out_lp), cache
+
+
+# ---------------------------------------------------------------------------
+# CUR-KV calibration
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def collect_kv(params, cfg: ModelConfig, tokens: torch.Tensor
+               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Dense forward over a calibration batch collecting every attention
+    layer's roped K/V (B, S, K, hd) -- input to the DEIM column selection."""
+    check_supported(cfg)
+    x = _embed(params, cfg, {"tokens": tokens})
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    scale = cfg.resolved_head_dim ** -0.5
+    ks, vs = [], []
+    for li, spec, p in iter_layer_params(params, cfg):
+        win = cfg.window if spec.mixer == ATTN_LOCAL else 0
+        h = norm(x, p.get("norm1"), cfg)
+        q, k, v = attn.qkv_project(h, p, cfg, positions)
+        ks.append(k)
+        vs.append(v)
+        qg = attn._group_q(q, cfg.n_kv_heads)
+        o = attn._mix(qg, k, v, positions, win, scale, cfg)
+        x = x + apply_w(o.reshape(B, S, -1), p["wo"])
+        x = _channel_mix(x, p, spec, cfg)
+    return ks, vs
+
+
+def calibrate_kv(params, cfg: ModelConfig, pc: pcache.PagedConfig,
+                 cache: dict, tokens: torch.Tensor) -> dict:
+    """Fill ``cache['proj']`` from a calibration prompt batch."""
+    if not pc.cur_kv:
+        return cache
+    r = pc.rank(cfg.resolved_head_dim)
+    ks, vs = collect_kv(params, cfg,
+                        _to(tokens.long(), _device_of(cache)))
+    new = dict(cache)
+    new["proj"] = pcache.projections_from_kv(ks, vs, r)
+    return new

@@ -78,3 +78,31 @@ def test_flash_attention_gqa_mismatch_raises():
         flash_attention_op(q, k, v)
     with pytest.raises(ValueError, match="GQA"):
         flash_attention_ref(q, k, v)
+
+
+@pytest.mark.parametrize("d", [8, 24, 48])
+def test_registry_adaptor_pads_feature_dim(d):
+    """The ``flash_cuda`` adaptor zero-pads a feature dim between the
+    kernel's widths (a CUR-KV rank) and slices back: on CPU tensors, where
+    the op is the plain version, it equals the unpadded plain path and the
+    JAX op at the same d."""
+    from repro_torch.attention import registry
+    B, S, K, G = 2, 40, 2, 2
+    (jq, jk, jv), (q, k, v) = _qkv(B, K * G, K, S, d, "float32", seed=d)
+    qg = q.reshape(B, K, G, S, d).permute(0, 3, 1, 2, 4)
+    pos = torch.arange(S)[None].expand(B, S)
+    o = registry._mix_flash_cuda(qg, k.transpose(1, 2), v.transpose(1, 2),
+                                 pos, pos, 0, 1.0, chunk=0)
+    o = o.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, d)
+    _assert_close(o.numpy(),
+                  flash_attention_ref(q, k, v, scale=1.0).numpy(), "float32")
+    _assert_close(o.numpy(), np.asarray(jax_flash_op(jq, jk, jv, scale=1.0)),
+                  "float32")
+    assert registry._padded_dim(d) in (16, 32, 64)
+
+
+def test_registry_adaptor_refuses_dims_above_the_kernel():
+    from repro_torch.attention import registry
+    assert registry._padded_dim(128) == 128
+    with pytest.raises(ValueError, match="above 128"):
+        registry._padded_dim(129)

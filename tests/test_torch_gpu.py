@@ -73,3 +73,140 @@ def test_apply_w_routes_folded_weights_through_kernel(gen):
     y = layers.apply_w(x, w)
     assert cm.launches == before + 1
     assert rel_err(y.cpu(), ((x @ w["CU"]) @ w["R"]).cpu()) < 2e-5
+
+
+# ---------------------------------------------------------------------------
+# paged_attention (tests/test_paged_attention.py's grid) and serving
+# ---------------------------------------------------------------------------
+
+_PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _paged_case(B, K, G, r, nb, bs, maxb, dtype, *, seed=0,
+                inactive_last=True):
+    """tests/test_paged_attention.py::_case with numpy draws, on the card."""
+    import numpy as np
+    rng = np.random.RandomState(seed)      # the layout: as in that file
+    draw = np.random.RandomState(seed + 1000)
+    q, kp, vp = (torch.from_numpy(draw.standard_normal(s).astype(np.float32))
+                 .to("cuda", dtype) for s in
+                 ((B, K, G, r), (nb, bs, K, r), (nb, bs, K, r)))
+    ctx = np.array([rng.randint(0, maxb * bs) for _ in range(B)], np.int32)
+    table = np.full((B, maxb), -1, np.int32)
+    free = list(rng.permutation(nb))
+    for b in range(B):
+        if inactive_last and b == B - 1:
+            ctx[b] = 0
+            continue
+        for j in range(ctx[b] // bs + 1):
+            table[b, j] = free.pop()
+    return (q, kp, vp, torch.from_numpy(table).cuda(),
+            torch.from_numpy(ctx).cuda())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,G,r,nb,bs,maxb,win", [
+    (3, 2, 2, 16, 12, 4, 5, 0), (4, 4, 1, 8, 16, 8, 3, 0),
+    (2, 1, 4, 32, 8, 16, 2, 0), (3, 2, 3, 16, 12, 4, 5, 7),
+    (3, 2, 2, 16, 12, 4, 5, 3), (8, 8, 4, 128, 552, 16, 69, 0)])
+def test_paged_kernel_matches_plain(gen, B, K, G, r, nb, bs, maxb, win,
+                                    dtype):
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    args = _paged_case(B, K, G, r, nb, bs, maxb, dtype)
+    before = pa.launches
+    y = pa.paged_attention(*args, window=win)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    yr = paged_attention_ref(*args, window=win)
+    assert rel_err(y.cpu(), yr.cpu()) < _PAGED_TOL[dtype]
+    assert not y[-1].any() and not yr[-1].any()      # inactive slot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,G,r,nb,bs,maxb,win,span", [
+    (3, 2, 2, 16, 16, 4, 7, 0, 4), (2, 1, 4, 8, 12, 8, 4, 0, 2),
+    (3, 2, 3, 16, 16, 4, 7, 5, 3)])
+def test_paged_kernel_q_span_matches_plain(gen, B, K, G, r, nb, bs, maxb,
+                                           win, span, dtype):
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    q, kp, vp, table, ctx = _paged_case(B, K, span * G, r, nb, bs, maxb,
+                                        dtype, inactive_last=False)
+    ctx = torch.clamp(torch.minimum(
+        ctx, (table >= 0).sum(1).int() * bs - span), min=0)
+    y = pa.paged_attention(q, kp, vp, table, ctx, window=win, q_span=span)
+    yr = paged_attention_ref(q, kp, vp, table, ctx, window=win, q_span=span)
+    assert rel_err(y.cpu(), yr.cpu()) < _PAGED_TOL[dtype]
+
+
+def test_paged_kernel_raises_on_bad_shapes(gen):
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    z = torch.zeros
+    table = z((2, 2), dtype=torch.int32, device="cuda")
+    ctx = z((2,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="mismatch"):
+        pa.paged_attention(z((2, 2, 2, 8), device="cuda"),
+                           z((4, 4, 2, 8), device="cuda"),
+                           z((4, 4, 2, 4), device="cuda"), table, ctx)
+    with pytest.raises(ValueError, match="q_span"):
+        pa.paged_attention(z((2, 2, 6, 8), device="cuda"),
+                           z((4, 4, 2, 8), device="cuda"),
+                           z((4, 4, 2, 8), device="cuda"), table, ctx,
+                           q_span=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 24, 48])
+def test_flash_adaptor_pads_feature_dim(gen, d, dtype):
+    """Rank-space prefill at a CUR-KV rank between the kernel's widths:
+    the registry zero-pads d, runs the kernel and slices back."""
+    from repro_torch.attention import registry
+    B, S, K, G = 2, 96, 2, 2
+    qg = (torch.randn((B, S, K, G, d), generator=gen, device="cuda")
+          * d ** -0.5).to(dtype)
+    k = _randn(gen, (B, S, K, d), dtype)
+    v = _randn(gen, (B, S, K, d), dtype)
+    pos = torch.arange(S, device="cuda")[None].expand(B, S)
+    before = fa.launches
+    o = registry._mix_flash_cuda(qg, k, v, pos, pos, 0, 1.0, chunk=0)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref = flash_attention_ref(
+        qg.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, d),
+        k.transpose(1, 2), v.transpose(1, 2), scale=1.0)
+    ref = ref.reshape(B, K, G, S, d).permute(0, 3, 1, 2, 4)
+    assert rel_err(o.cpu(), ref.cpu()) < _TOL[dtype]
+
+
+@pytest.mark.parametrize("cur_kv", [False, True])
+def test_server_on_card_matches_cpu(gen, cur_kv):
+    """A small f32 Server on the card gives the CPU's greedy tokens, with
+    every decode attention through the kernel."""
+    import numpy as np
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.launch.serve import make_workload
+    from repro_torch.models import init_params
+    from repro_torch.serving import PagedConfig, Server
+    cfg = get_smoke("llama3.1-8b")
+    params = init_params(0, cfg, "cpu")
+    wl = make_workload(6, cfg.vocab_size, max_new=10)
+    calib = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 64))
+    pc = PagedConfig.sized_for(60, 4, block_size=8, cur_kv=cur_kv,
+                               kv_rank=cfg.resolved_head_dim // 2)
+    outs = {}
+    for dev, prm in (("cpu", params),
+                     ("cuda", tree_map(lambda t: t.cuda(), params))):
+        srv = Server(prm, cfg, pc, max_concurrency=4, calib_tokens=calib,
+                     device=dev)
+        before = pa.launches
+        for w in wl:
+            srv.submit(w["prompt"], w["max_new_tokens"])
+        srv.drain()
+        outs[dev] = {k: r.out_tokens for k, r in srv.finished.items()}
+        if dev == "cuda":
+            assert (pa.launches - before
+                    == srv.stats()["n_decode_steps"] * cfg.n_layers)
+    assert outs["cuda"] == outs["cpu"]

@@ -17,6 +17,8 @@ from repro_torch.kernels.cur_matmul import cur_matmul as cm_kernel
 from repro_torch.kernels.cur_matmul import ops as cm_ops
 from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention import paged_attention as pa_kernel
 
 torch.set_num_threads(1)
 
@@ -31,6 +33,12 @@ def _all_modules():
 def test_port_imports_no_jax_and_no_reference_package():
     mods = _all_modules()
     assert len(mods) > 25
+    for name in ("serving.server", "serving.scheduler", "serving.runtime",
+                 "serving.paged_cache", "serving.sampling",
+                 "serving.resilience", "attention.prefill",
+                 "kernels.paged_attention.ops", "obs.metrics", "obs.trace",
+                 "obs.export", "obs.loadgen", "obs.slo", "launch.serve"):
+        assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in {mods!r}:
@@ -65,6 +73,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cure.cure(args)
     assert repro_torch.resolve_device("cpu").type == "cpu"
+    from repro_torch.launch import serve
+    from repro_torch.serving import Server
+    assert serve.parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama3.1-8b", "--smoke"])
+    params = init_params(0, get_smoke("llama3.1-8b"), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(params, get_smoke("llama3.1-8b"))
 
 
 class _FakeCuda:
@@ -90,6 +106,12 @@ class _FakeCuda:
 
     def dim(self):
         return self._t.dim()
+
+    def stride(self, *dim):
+        return self._t.stride(*dim)
+
+    def to(self, *args, **kwargs):
+        return self
 
 
 def _no_library():
@@ -124,6 +146,26 @@ def test_flash_attention_op_on_cuda_launches_or_raises(monkeypatch):
     assert fa_kernel.launches == before
 
 
+def test_paged_attention_op_on_cuda_launches_or_raises(monkeypatch):
+    monkeypatch.setattr(pa_ops, "paged_attention_ref", _plain_called)
+    monkeypatch.setattr(pa_kernel, "_lib", _no_library)
+    before = pa_kernel.launches
+    q = _FakeCuda(torch.zeros((2, 2, 2, 16)))
+    kp = vp = _FakeCuda(torch.zeros((4, 4, 2, 16)))
+    table = _FakeCuda(torch.zeros((2, 3), dtype=torch.int32))
+    ctx = _FakeCuda(torch.zeros((2,), dtype=torch.int32))
+    with pytest.raises((RuntimeError, AssertionError)) as e:
+        pa_ops.paged_attention_op(q, kp, vp, table, ctx)
+    assert "plain version" not in str(e.value)
+    assert pa_kernel.launches == before
+
+
+def test_paged_decode_registry_takes_the_kernel_for_cuda():
+    from repro_torch.attention import registry
+    assert registry.resolve_paged(True).name == "paged_cuda"
+    assert registry.resolve_paged(False).name == "paged_ref"
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         cm_kernel.cur_matmul(torch.zeros(4, 8), torch.zeros(8, 2),
@@ -132,6 +174,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fa_kernel.flash_attention(torch.zeros(1, 2, 8, 16),
                                   torch.zeros(1, 1, 8, 16),
                                   torch.zeros(1, 1, 8, 16))
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        pa_kernel.paged_attention(torch.zeros(2, 1, 2, 8),
+                                  torch.zeros(4, 4, 1, 8),
+                                  torch.zeros(4, 4, 1, 8),
+                                  torch.zeros((2, 2), dtype=torch.int32),
+                                  torch.zeros((2,), dtype=torch.int32))
 
 
 def test_ops_refuse_other_devices():
@@ -142,6 +190,12 @@ def test_ops_refuse_other_devices():
     q = torch.zeros((1, 2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         fa_ops.flash_attention_op(q, q[:, :1], q[:, :1])
+    pool = torch.zeros((4, 4, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        pa_ops.paged_attention_op(
+            q[0][None], pool, pool,
+            torch.zeros((1, 2), dtype=torch.int32, device="meta"),
+            torch.zeros((1,), dtype=torch.int32, device="meta"))
 
 
 def test_kernel_sources_and_build_dir_exist():
