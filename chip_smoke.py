@@ -9,13 +9,16 @@ nonzero:
 
   1. card     name, power limit, torch/CUDA versions; TF32 off
   2. build    every kernel of the main path, from ``src/repro_torch/csrc``
-  3. kernels  each kernel against its plain PyTorch version, scale-relative
+  3. kernels  each kernel against its plain PyTorch version (both bodies
+              of cur_matmul; bit-identical repeats), scale-relative
               max error < 2e-5 (f32) / < 2e-2 (bf16); paged_attention
               < 1e-5 / 2e-2 (tests/test_paged_attention.py's bounds); the
               flash kernel's zero-padded feature dims (CUR-KV ranks)
   4. times    kernel, plain version and one library call at the main
               paths' shapes (median of 25 launches, CUDA events), beside
-              the least time the card could take (bound)
+              the least time the card could take (bound), with achieved
+              GB/s and TFLOP/s and the host's time per call; each
+              kernel's registers and spills from the -Xptxas -v log
   5. small    the folded forward at a small f32 size on the card against
               the same params on the CPU (plain versions), 2e-5; then
               that model served on the card and on the CPU, dense and
@@ -32,6 +35,11 @@ nonzero:
               256/512/1024, 64 new tokens), each on a dense pool and a
               CUR-KV pool at rank 64; per run tokens/s, TTFT, TPOT, pool
               bytes and the launches of all three kernels, with checks
+  8. split    device time by kernel (torch.profiler, after every timed
+              phase): cur_matmul per weight and pass against the
+              torch.matmul chain, flash_attention against SDPA, and one
+              traced folded perplexity pass (busy and idle share, top
+              kernels)
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernel table.
@@ -105,6 +113,73 @@ def bound_ms(nbytes, flops):
                                        else "operations")
 
 
+def ptxas_report(name):
+    """[(function, registers, spill store bytes, spill load bytes)] for
+    each entry function in kernel ``name``'s ``-Xptxas -v`` log; names
+    demangled with ``c++filt`` where it is on the PATH."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    log = _build.lib_path(name).with_suffix(".log").read_text()
+    rows, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            rows.append([fn, int(m.group(1)), *spill])
+            fn = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if len(names) == len(rows):
+            for r, nm in zip(rows, names):
+                nm = nm.replace("(anonymous namespace)::", "")
+                r[0] = nm.split("(")[0].replace("void ", "")
+    return rows
+
+
+def kernel_ms(fn, n=25):
+    """{device kernel name: mean ms per call of fn} over n calls under
+    torch.profiler, after a warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / n
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def host_ms(fn, n=50):
+    """Mean host time of one call of fn, launches only (no sync inside
+    the timed loop; the queue is drained before and after)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / n
+
+
 def phase_card():
     import torch
     say("== phase 1: card")
@@ -127,11 +202,6 @@ def phase_build():
     secs = _build.build_all()
     say(f"built {sorted(secs)} in {time.perf_counter() - t0:.1f}s "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in secs.items()})})")
-    for name in _build.KERNELS:
-        log = _build.lib_path(name).with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas {name}: {line.strip()}")
 
 
 def _randn(gen, shape, dtype, scale=1.0):
@@ -196,16 +266,29 @@ def phase_kernels():
     cur_cases = [(CUR_M,) + CUR_SHAPES[k] + (dt, True)
                  for k in CUR_SHAPES for dt in (bf16, f32)]
     cur_cases += [(96, 100, 24, 200, f32, False),
-                  (96, 100, 24, 200, bf16, False)]
+                  (96, 100, 24, 200, bf16, False),    # fused body (m 100)
+                  (512, 1024, 16, 1024, bf16, False),
+                  (512, 1024, 24, 1024, bf16, False),
+                  (1024, 2048, 512, 1024, bf16, False),
+                  (1024, 1000, 64, 520, bf16, False),  # split off a slice edge
+                  (300, 512, 40, 264, bf16, False)]    # ragged M, last n tile
     for M, m, r, n, dt, main in cur_cases:
         x = _randn(gen, (M, m), dt)
         cu = _randn(gen, (m, r), dt, m ** -0.5)
         rr = _randn(gen, (r, n), dt, r ** -0.5)
         y = cm.cur_matmul(x, cu, rr)
         torch.cuda.synchronize()
-        e = check(f"cur_matmul M={M} m={m} r={r} n={n} {dt}", y,
+        body = cm.plan(M, m, r, n, dt).body
+        e = check(f"cur_matmul M={M} m={m} r={r} n={n} {dt} ({body})", y,
                   cur_matmul_ref(x, cu, rr), dt, main and dt == bf16)
         worst["cur_matmul"] = max(worst["cur_matmul"], e)
+        if dt == bf16 and (main or m == 100):
+            # no atomics: a second call gives the same bits
+            same = torch.equal(y, cm.cur_matmul(x, cu, rr))
+            say(f"  cur_matmul M={M} m={m} r={r} n={n} repeat "
+                f"{'bit-identical' if same else 'DIFFERS'}")
+            if not same:
+                failures.append(f"cur_matmul repeat M={M} n={n}")
     x = _randn(gen, (2, 8, 16, 128), f32)
     cu = _randn(gen, (128, 32), f32)
     rr = _randn(gen, (32, 256), f32)
@@ -221,6 +304,7 @@ def phase_kernels():
         (B, H, K, S, d, 0, True, bf16, True),
         (B, H, K, S, d, 0, True, f32, False),
         (2, H, K, S, d, 128, True, bf16, False),
+        (1, 8, 2, 1024, 64, 0, True, bf16, False),
         (1, 4, 2, 128, 32, 48, True, f32, False),
         (1, 4, 2, 200, 64, 0, True, f32, False),      # ragged S
         (1, 4, 2, 200, 64, 0, False, f32, False),     # ragged, non-causal
@@ -237,10 +321,18 @@ def phase_kernels():
                                scale=scale)
         torch.cuda.synchronize()
         e = check(f"flash_attention B={b} H={h} K={k} S={s} d={dd} "
-                  f"window={win} causal={causal} {dt}", o,
+                  f"window={win} causal={causal} {dt} "
+                  f"({fa.plan(b, h, s, dd, dt).body})", o,
                   flash_attention_ref(q, kk, v, causal=causal, window=win,
                                       scale=scale), dt, main)
         worst["flash_attention"] = max(worst["flash_attention"], e)
+        if main:
+            same = torch.equal(o, fa.flash_attention(
+                q, kk, v, causal=causal, window=win, scale=scale))
+            say(f"  flash_attention main shape repeat "
+                f"{'bit-identical' if same else 'DIFFERS'}")
+            if not same:
+                failures.append("flash_attention repeat")
     try:
         fa.flash_attention(_randn(gen, (1, 6, 32, 16), f32),
                            _randn(gen, (1, 4, 32, 16), f32),
@@ -370,14 +462,22 @@ def phase_times():
         nbytes = 2 * (M * m + m * r + r * n + M * n)
         flops = 2 * M * r * (m + n)
         bnd, by = bound_ms(nbytes, flops)
-        say(f"  cur_matmul {name} M={M} m={m} r={r} n={n}: kernel "
+        say(f"  cur_matmul {name} M={M} m={m} r={r} n={n} "
+            f"({cm.plan(M, m, r, n, bf16).body}): kernel "
             f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}); {flops / ms / 1e9:.1f} TFLOP/s")
+            f"bound {bnd:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        say(f"    host {host_ms(lambda: cm.cur_matmul(x, cu, rr)):.4f} ms "
+            f"per call (launches only)")
         for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                      ("bound_ms", bnd), ("bytes", nbytes), ("flops", flops)):
             tot[k] += v
     _, by = bound_ms(tot["bytes"], tot["flops"])
     rows["cur_matmul"] = dict(tot, bound_by=by)
+    say(f"  cur_matmul wq + wk + w_gate: kernel {tot['ms']:.4f} ms, "
+        f"library {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
+        f"ms; {tot['bytes'] / tot['ms'] / 1e6:.1f} GB/s, "
+        f"{tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s")
 
     B, H, K, S, d = FLASH_SHAPE
     q = _randn(gen, (B, H, S, d), bf16)
@@ -393,7 +493,10 @@ def phase_times():
     bnd, by = bound_ms(nbytes, flops)
     say(f"  flash_attention B={B} H={H} K={K} S={S} d={d} causal: kernel "
         f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
-        f"bound {bnd:.4f} ms ({by}); {flops / ms / 1e9:.1f} TFLOP/s")
+        f"bound {bnd:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s, "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
+    say(f"    host {host_ms(lambda: fa.flash_attention(q, k, v, scale=scale)):.4f}"
+        f" ms per call (launches only)")
     rows["flash_attention"] = {"ms": ms, "plain_ms": plain,
                                "library_ms": lib, "bound_ms": bnd,
                                "bound_by": by}
@@ -434,7 +537,30 @@ def phase_times():
             rows["paged_attention"] = {"ms": ms, "plain_ms": plain,
                                        "library_ms": lib, "bound_ms": bnd,
                                        "bound_by": by}
+    from repro_torch.kernels import _build
+    for name in _build.KERNELS:
+        for fn, regs, st, ld in ptxas_report(name):
+            say(f"  ptxas {name}: {fn}: {regs} registers, spill stores "
+                f"{st} B, spill loads {ld} B")
     return rows
+
+
+def _total(times):
+    """The summed device time of kernel_ms's result, or why there is none."""
+    if not times:
+        return "not measured (the profiler saw no kernel)"
+    return f"{sum(times.values()):.4f} ms"
+
+
+def _pass_name(kernel):
+    """cur_matmul's device kernels by their part of the function."""
+    for key, label in (("pass1_kernel", "pass 1 (x @ CU, split-K)"),
+                       ("reduce_kernel", "reduce (sum splits, round t)"),
+                       ("pass2_kernel", "pass 2 (t @ R)"),
+                       ("cur_matmul_kernel", "fused")):
+        if key in kernel:
+            return label
+    return kernel[:60]
 
 
 def phase_small():
@@ -709,6 +835,64 @@ def phase_serve(run):
     return launches
 
 
+def phase_split(run):
+    """Device time by kernel (torch.profiler), run last so that no profiler
+    window precedes a timed phase: cur_matmul per weight and pass and the
+    torch.matmul chain, flash_attention and SDPA at the main shapes; then
+    one folded perplexity pass of phase 6's model, its wall time against
+    its kernels' busy time and the kernels that took the most."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.train.evaluate import perplexity
+    say("== phase 8: device time by kernel (torch.profiler, bf16)")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16 = torch.bfloat16
+    for name, (m, r, n) in CUR_SHAPES.items():
+        x = _randn(gen, (CUR_M, m), bf16)
+        cu = _randn(gen, (m, r), bf16, m ** -0.5)
+        rr = _randn(gen, (r, n), bf16, r ** -0.5)
+        parts = kernel_ms(lambda: cm.cur_matmul(x, cu, rr))
+        lib = kernel_ms(lambda: torch.matmul(torch.matmul(x, cu), rr))
+        say(f"  cur_matmul {name}: " + ", ".join(
+            f"{_pass_name(k)} {v:.4f} ms" for k, v in parts.items())
+            + f" (sum {_total(parts)}); torch.matmul chain {_total(lib)} "
+            f"(mean of 25 calls)")
+    B, H, K, S, d = FLASH_SHAPE
+    q = _randn(gen, (B, H, S, d), bf16)
+    k = _randn(gen, (B, K, S, d), bf16)
+    v = _randn(gen, (B, K, S, d), bf16)
+    scale = d ** -0.5
+    dev = kernel_ms(lambda: fa.flash_attention(q, k, v, scale=scale))
+    lib = kernel_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+    say(f"  flash_attention B={B} H={H} K={K} S={S} d={d} causal: "
+        f"{_total(dev)}; SDPA {_total(lib)} (mean of 25 calls)")
+    ds = SyntheticLM(DataConfig(run.cfg.vocab_size, 512, 4, seed=1), "cuda")
+    evl = [ds.batch_at(1000 + i) for i in range(2)]
+    perplexity(run.cured_params, run.cured_cfg, evl)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        perplexity(run.cured_params, run.cured_cfg, evl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    say(f"  folded perplexity pass (traced): wall {wall:.3f} s, kernels "
+        f"busy {busy:.3f} s, device idle share {1 - busy / wall:.3f}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        say(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d} x {e.key[:90]}")
+
+
 def profile_decode(params, cfg, wl):
     """Where a decode window's time goes: one 16-step window of 8 slots at
     workload B's prompts (dense pool) timed alone, then the next one under
@@ -771,7 +955,7 @@ def main():
         return 2
     from repro_torch.kernels import _build  # noqa: F401 (fails off-repo)
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (all by default)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     smi = phase_card()
@@ -785,7 +969,9 @@ def main():
         main_launches, run = phase_main()
         if 7 in phases:
             serve_launches = phase_serve(run)
-    if phases != set(range(1, 8)):
+        if 8 in phases:
+            phase_split(run)
+    if phases != set(range(1, 9)):
         say(f"ran phases {sorted(phases)} only: no kernel table")
         return 1
     # launches on the main paths: the last cure() run with both

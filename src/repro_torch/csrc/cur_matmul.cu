@@ -1,4 +1,4 @@
-// Fused CUR matmul for Hopper (sm_90a): y = (x @ CU) @ R.
+// CUR matmul for Hopper (sm_90a): y = (x @ CU) @ R.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/cur_matmul/cur_matmul.py
 // (`cur_matmul` -> `_cur_matmul_aligned`, body `_kernel`).
@@ -7,38 +7,64 @@
 // (M + r)(m + n) elements, each read or written once, so in bf16 it does
 // M r / (M + r) operations per byte whatever m and n are: 228 at the main
 // path's M = 2048, r = 256, below the card's 295 (989 TFLOP/s over
-// 3.35 TB/s). The bound is the bytes. For w_gate (m 4096, n 14336) that
-// is 84.9 MB in 25.4 us against 19.3 GFLOP in 19.5 us; chip_smoke.py
-// computes the same bound from its shapes. So the kernel must not move
-// more than it reads: the fusion keeps the (M, r) intermediate, which
-// would add 2 M r elements of traffic, out of device memory, as on the
-// TPU, and CU and R are re-read by every block from L2, not from HBM.
+// 3.35 TB/s). The bound is the bytes: 146 MB for one layer's wq, wk and
+// w_gate (84.9 MB, 25.4 us, for w_gate alone); chip_smoke.py computes the
+// same bound from its shapes.
 //
-// Design. GPU blocks share nothing and run in no order, so the TPU grid's
-// sequential N axis (the `pl.when(j == 0)` scratch fill) becomes a loop
-// inside the block: one block owns a BM-row tile of x, forms
-// t = x_tile @ CU once into shared memory, and then walks every N tile of
-// R itself. t is kept in x's dtype in shared memory, which is exactly the
-// TPU kernel's cast of its f32 scratch before the second product; both
-// products accumulate in f32. Ragged M / r / n edges are masked in the
-// loads and the store (the TPU kernel padded and sliced instead). bf16 runs
-// on the tensor cores through WMMA (mma.sync 16x16x16); f32 runs on plain
-// FMA so that it stays exact f32 (WMMA's f32 input is TF32).
+// Why the TPU kernel's fusion gives way here. On the TPU the grid's N axis
+// runs in order on one core, so the (bm, r) intermediate t = x_tile @ CU
+// is formed once per row tile in scratch and reused for every N tile at no
+// cost. The literal translation (the `fused` body below) makes one block
+// own a 16-row tile of x and walk every N tile of R itself, so each of the
+// 128 blocks re-reads all of CU and R from L2: 4.2 MB for wq, 2.6 MB for
+// wk, 9.4 MB for w_gate, about 2.1 GB of L2 traffic per layer against the
+// 146 MB the function needs. Writing t to device memory instead costs
+// 2 M r bytes each way, 1 MB at M 2048, r 256: 6.3 MB for the three
+// weights, 4.3% of the 146 MB, and it stays in the 50 MB L2.
 //
-// Each block re-reads all of CU and R (from L2), so the row tile is short
-// (BM = 16): at M = 2048 that gives 128 blocks for the 132 SMs, where
-// BM = 64 gave 32. A staged slice is 128 x 128 bf16 (64 x 128 f32), moved
-// with 16-byte loads that a thread issues all at once, so that each
-// round trip to L2 brings 32 KB.
+// Design of the bf16 body (`tc`): two GEMMs, each the Hopper way.
+//   pass 1  t_s = x @ CU over a slice range s of m, f32 partial sums to a
+//           workspace (split-K: M r is only 32 tiles of 128 x 128 at the
+//           main shape, so m is split until ~132 work items exist);
+//   reduce  t = bf16(sum_s t_s), the splits added in a fixed order, so the
+//           result is bit-identical from call to call (no atomics) and t
+//           is rounded once from an f32 sum over all of m, as on the TPU;
+//   pass 2  y = t @ R, 128 x 128 output tiles over K = r.
+// Both GEMMs are warp-specialised: warpgroup 0 is the producer, one thread
+// keeping TMA loads in flight in a ring of 128-byte-swizzled shared memory
+// (6 stages in pass 1, 4 in pass 2), completed on mbarriers; warpgroups 1 and 2 each run
+// wgmma m64n128k16 over 64 rows with the f32 accumulators in registers,
+// keep one wgmma group in flight, and hand a stage back on an "empty"
+// mbarrier. B (CU or R) is row-major, so wgmma reads it MN-major
+// (transposed) from the same swizzled layout. Pass 1 is persistent (one
+// block per SM walking (row tile, column tile, split) items in a fixed
+// stride). In pass 2 every tile re-reading its 128 x r rows of t would
+// cost as much L2 traffic as streaming R, so a block owns one row tile,
+// loads its t rows (r <= 512: at most 128 KB) once, and walks a stride of
+// column tiles with only R in the ring; its epilogue rounds to bf16 into
+// swizzled shared memory and stores 64 x 64 boxes with TMA, which
+// overlaps the next tile's loads. Ragged M, r and n are TMA's
+// out-of-bounds zero fill on loads and its clipping on stores; a ragged
+// last slice of m is zero-filled the same way.
 //
-// Known limits, for later work: one block per SM cannot hide the L2
-// latency of a slice behind the products (no cp.async / TMA double
-// buffering), and there is no wgmma.
+// TMA describes a tensor only when every row stride is a multiple of 16
+// bytes, so the `tc` body needs m, r and n to be multiples of 8 (and
+// 16-byte-aligned base pointers). For any other bf16 shape, and for f32,
+// the wrapper (`kernels/cur_matmul/cur_matmul.py::plan`) routes by shape to
+// the `fused` body, which stays for that purpose: f32 runs on FMA there so
+// that it stays exact f32 (WMMA's f32 input is TF32).
+//
+// The `fused` body: one block owns a BM = 16 row tile of x, forms
+// t = x_tile @ CU once into shared memory in x's dtype, then walks every N
+// tile of R; both products accumulate in f32; bf16 on WMMA (mma.sync
+// 16x16x16), f32 on FMA; ragged edges masked in its loads and store.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <cstdint>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -236,9 +262,330 @@ int launch(const void* x, const void* cu, const void* r, void* y, int M, int m,
   return (int)cudaGetLastError();
 }
 
+
+// ===========================================================================
+// The two-pass bf16 body (TMA + wgmma).
+// ===========================================================================
+namespace tc {
+
+using namespace hopper;
+
+constexpr int BM = 128, BN = 128, BK = 64;
+constexpr int STAGES1 = 6;                // pass 1's ring: A and B slices
+constexpr int STAGES2 = 4;                // pass 2's ring: B slices
+constexpr int THREADS = 384;              // producer + two consumer warpgroups
+constexpr int A_BYTES = BM * BK * 2;      // 16 KB: 128 rows x 128 B
+constexpr int B_HALF = BK * 64 * 2;       // 8 KB: 64 rows x 64 columns
+constexpr int B_BYTES = 2 * B_HALF;       // 16 KB: the 128-column tile
+constexpr int OUT_HALF = 64 * 64 * 2;     // 8 KB: one 64 x 64 store box
+constexpr int OUT_BYTES = 2 * OUT_HALF;   // a consumer's 64 x 128 tile
+constexpr int MAX_KT = 8;                 // r <= 512: pass 2 keeps all of A
+
+// Dynamic shared memory: a ring of A tiles (pass 1) or all kt of them
+// (pass 2), the ring of S B tiles, the consumers' store boxes (pass 2),
+// the barriers.
+constexpr int smem_bytes(int a_tiles, int S, int out_bytes) {
+  return 1024 + a_tiles * A_BYTES + S * B_BYTES + out_bytes + (2 * S + 1) * 8;
+}
+
+struct Smem {
+  unsigned char *a, *b, *out;
+  uint64_t *full, *empty, *a_full;
+};
+
+template <int S>
+__device__ __forceinline__ Smem carve(unsigned char* raw, int a_tiles,
+                                      int out_bytes) {
+  Smem m;
+  m.a = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  m.b = m.a + a_tiles * A_BYTES;
+  m.out = m.b + S * B_BYTES;
+  m.full = reinterpret_cast<uint64_t*>(m.out + out_bytes);
+  m.empty = m.full + S;
+  m.a_full = m.empty + S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&m.full[s], 1);    // the producer's arrive + the TMA bytes
+      mbar_init(&m.empty[s], 8);   // one arrive per consumer warp
+    }
+    mbar_init(m.a_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return m;
+}
+
+template <int S>
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// acc (this warpgroup's 64 x 128) += A (64 rows at a: K-major, 128-byte
+// swizzled, BK deep) @ B (BK x 128 at b: MN-major, two 64-column boxes
+// B_HALF apart). A k16 step is 32 bytes along A's swizzled rows and 16
+// rows (two 1 KB swizzle atoms) down B.
+__device__ __forceinline__ void mma_slice(float (&acc)[64],
+                                          const unsigned char* a,
+                                          const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_m64n128k16_bf16_tn(acc, wgmma_desc(a + kk * 32, 16, 1024),
+                             wgmma_desc(b + kk * 16 * 128, B_HALF, 1024));
+}
+
+// The consumers' main loop over slices kb .. ke - 1 of one output tile.
+// One wgmma group stays in flight: a stage goes back to the producer once
+// the group after it has been issued. a_of(k) is the A tile of slice k.
+template <int S, typename AOf>
+__device__ __forceinline__ void mainloop(float (&acc)[64], Smem& m, Ring<S>& ring,
+                                         int kb, int ke, int lane, AOf a_of) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int prev = -1;
+  for (int k = kb; k < ke; ++k) {
+    mbar_wait(&m.full[ring.stage], ring.phase);
+    fence_regs(acc);
+    wgmma_fence();
+    mma_slice(acc, a_of(k, ring.stage), m.b + ring.stage * B_BYTES);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc);
+    if (prev >= 0 && lane == 0) mbar_arrive(&m.empty[prev]);
+    prev = ring.stage;
+    ring.next();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (prev >= 0 && lane == 0) mbar_arrive(&m.empty[prev]);
+}
+
+// Producer side of one B slice: wait for the stage, expect its bytes, load.
+template <int S>
+__device__ __forceinline__ void load_b(Smem& m, Ring<S>& ring,
+                                       const CUtensorMap* map_b, int n0, int k,
+                                       int a_bytes) {
+  mbar_wait(&m.empty[ring.stage], ring.phase ^ 1);
+  mbar_arrive_expect_tx(&m.full[ring.stage], B_BYTES + a_bytes);
+  unsigned char* b = m.b + ring.stage * B_BYTES;
+  tma_load_2d(b, map_b, n0, k * BK, &m.full[ring.stage]);
+  tma_load_2d(b + B_HALF, map_b, n0 + 64, k * BK, &m.full[ring.stage]);
+}
+
+// Pass 1 work item -> (row tile, column tile, split, slices [kb, ke)).
+// kernels/cur_matmul/cur_matmul.py::work_items mirrors this.
+__device__ __forceinline__ void decode(int it, int tiles_m, int tiles_n,
+                                       int splits, int kt, int& mt, int& nt,
+                                       int& s, int& kb, int& ke) {
+  mt = it % tiles_m;
+  const int rest = it / tiles_m;
+  nt = rest % tiles_n;
+  s = rest / tiles_n;
+  kb = (int)((long)s * kt / splits);
+  ke = (int)((long)(s + 1) * kt / splits);
+}
+
+// Pass 1: ws[s] (M x N, f32) = x[:, slices of split s] @ CU[those rows, :].
+// Persistent: block b takes work items b, b + gridDim.x, ...
+__global__ void __launch_bounds__(THREADS, 1)
+pass1_kernel(const __grid_constant__ CUtensorMap map_x,
+             const __grid_constant__ CUtensorMap map_cu,
+             float* __restrict__ ws, int M, int N, int kt, int tiles_m,
+             int tiles_n, int splits) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem m = carve<STAGES1>(smem_raw, STAGES1, 0);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int items = tiles_m * tiles_n * splits;
+  Ring<STAGES1> ring;
+  if (wg == 0) {
+    if (tid == 0) {
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        int mt, nt, s, kb, ke;
+        decode(it, tiles_m, tiles_n, splits, kt, mt, nt, s, kb, ke);
+        for (int k = kb; k < ke; ++k) {
+          load_b(m, ring, &map_cu, nt * BN, k, A_BYTES);
+          tma_load_2d(m.a + ring.stage * A_BYTES, &map_x, k * BK, mt * BM,
+                      &m.full[ring.stage]);
+          ring.next();
+        }
+      }
+    }
+    return;
+  }
+  const int cw = wg - 1, warp = tid / 32, lane = tid % 32;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int mt, nt, s, kb, ke;
+    decode(it, tiles_m, tiles_n, splits, kt, mt, nt, s, kb, ke);
+    float acc[64];
+    mainloop(acc, m, ring, kb, ke, lane, [&](int, int st) {
+      return m.a + st * A_BYTES + cw * 64 * 128;
+    });
+    // acc[4j + 2h + e]: row warp * 16 + lane / 4 + 8h, column
+    // 8j + 2 (lane % 4) + e of this warpgroup's 64 x 128 tile
+    float* dst = ws + (long)s * M * N;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = nt * BN + j * 8 + (lane % 4) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * BM + cw * 64 + warp * 16 + lane / 4 + 8 * h;
+        if (row < M && col < N)   // N % 8 == 0: col + 1 < N too
+          *reinterpret_cast<float2*>(dst + (long)row * N + col) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Pass 2: y = t @ R. Block b owns row tile b % tiles_m and keeps all of
+// its rows of t (128 x r, kt slices) in shared memory, loaded once; it
+// walks column tiles b / tiles_m, + per_m, ..., so only R streams through
+// the ring. The epilogue rounds to bf16 into swizzled shared memory and
+// stores 64 x 64 boxes with TMA, overlapping the next tile's loads.
+__global__ void __launch_bounds__(THREADS, 1)
+pass2_kernel(const __grid_constant__ CUtensorMap map_t,
+             const __grid_constant__ CUtensorMap map_r,
+             const __grid_constant__ CUtensorMap map_y, int kt, int tiles_m,
+             int tiles_n, int per_m) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem m = carve<STAGES2>(smem_raw, kt, 2 * OUT_BYTES);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int mt = blockIdx.x % tiles_m, g = blockIdx.x / tiles_m;
+  Ring<STAGES2> ring;
+  if (wg == 0) {
+    if (tid == 0) {
+      mbar_arrive_expect_tx(m.a_full, kt * A_BYTES);
+      for (int k = 0; k < kt; ++k)
+        tma_load_2d(m.a + k * A_BYTES, &map_t, k * BK, mt * BM, m.a_full);
+      for (int nt = g; nt < tiles_n; nt += per_m)
+        for (int k = 0; k < kt; ++k) {
+          load_b(m, ring, &map_r, nt * BN, k, 0);
+          ring.next();
+        }
+    }
+    return;
+  }
+  const int cw = wg - 1, warp = tid / 32, lane = tid % 32;
+  unsigned char* out = m.out + cw * OUT_BYTES;
+  mbar_wait(m.a_full, 0);
+  for (int nt = g; nt < tiles_n; nt += per_m) {
+    float acc[64];
+    mainloop(acc, m, ring, 0, kt, lane, [&](int k, int) {
+      return m.a + k * A_BYTES + cw * 64 * 128;
+    });
+    if (tid == 0) bulk_wait_read_all();   // the previous tile's stores
+    bar_sync(1 + cw, 128);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = warp * 16 + lane / 4 + 8 * h;
+        // the 128-byte swizzle TMA expects: 16-byte chunk ^ (row % 8)
+        *reinterpret_cast<uint32_t*>(
+            out + (j >> 3) * OUT_HALF + row * 128 +
+            (((j & 7) ^ (row & 7)) << 4) + (lane % 4) * 4) =
+            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+    fence_proxy_async();
+    bar_sync(1 + cw, 128);
+    if (tid == 0) {
+      tma_store_2d(&map_y, out, nt * BN, mt * BM + cw * 64);
+      tma_store_2d(&map_y, out + OUT_HALF, nt * BN + 64, mt * BM + cw * 64);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait_all();
+}
+
+// t = bf16(ws[0] + ws[1] + ... + ws[splits - 1]), in that order; n4 float4s.
+__global__ void reduce_kernel(const float4* __restrict__ ws,
+                              uint2* __restrict__ t, long n4, int splits) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long)gridDim.x * blockDim.x) {
+    float4 a = ws[i];
+    for (int s = 1; s < splits; ++s) {
+      const float4 b = ws[(long)s * n4 + i];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    t[i] = make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
+  }
+}
+
+// Map of a row-major bf16 (rows x cols) matrix, boxes of box_rows x
+// box_cols, 128-byte swizzle, zero fill out of bounds.
+bool map_2d(CUtensorMap* map, const void* base, int rows, int cols,
+            int box_rows, int box_cols) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint32_t box[2] = {(uint32_t)box_cols, (uint32_t)box_rows};
+  return make_map(map, base, 2, dims, box);
+}
+
+// The shared-memory limit of both kernels, set once per device.
+int set_smem_limits() {
+  static unsigned done = 0;   // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 32 && (done >> dev) & 1u) return 0;
+  err = cudaFuncSetAttribute(pass1_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes(STAGES1, STAGES1, 0));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(pass2_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes(MAX_KT, STAGES2, 2 * OUT_BYTES));
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 32) done |= 1u << dev;
+  return 0;
+}
+
+int launch(const void* x, const void* cu, const void* r, void* y, void* ws,
+           void* t, int M, int m, int rk, int n, int splits, int grid1,
+           int grid2, int grid_r, cudaStream_t stream) {
+  const int kt2 = (rk + BK - 1) / BK;
+  if (kt2 > MAX_KT || grid2 % ((M + BM - 1) / BM) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap mx, mcu, mt, mr, my;
+  if (!map_2d(&mx, x, M, m, BM, BK) || !map_2d(&mcu, cu, m, rk, BK, 64) ||
+      !map_2d(&mt, t, M, rk, BM, BK) || !map_2d(&mr, r, rk, n, BK, 64) ||
+      !map_2d(&my, y, M, n, 64, 64))
+    return (int)cudaErrorInvalidValue;
+  int e = set_smem_limits();
+  if (e != 0) return e;
+  const int tiles_m = (M + BM - 1) / BM;
+  pass1_kernel<<<grid1, THREADS, smem_bytes(STAGES1, STAGES1, 0), stream>>>(
+      mx, mcu, static_cast<float*>(ws), M, rk, (m + BK - 1) / BK, tiles_m,
+      (rk + BN - 1) / BN, splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_kernel<<<grid_r, 256, 0, stream>>>(
+      static_cast<const float4*>(ws), static_cast<uint2*>(t),
+      (long)M * rk / 4, splits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  pass2_kernel<<<grid2, THREADS, smem_bytes(kt2, STAGES2, 2 * OUT_BYTES),
+                 stream>>>(
+      mt, mr, my, kt2, tiles_m, (n + BN - 1) / BN, grid2 / tiles_m);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// The `fused` body (f32, and bf16 shapes TMA cannot describe).
 extern "C" int cur_matmul_launch(const void* x, const void* cu, const void* r,
                                  void* y, int M, int m, int rk, int n,
                                  int dtype, void* stream) {
@@ -246,4 +593,15 @@ extern "C" int cur_matmul_launch(const void* x, const void* cu, const void* r,
   if (dtype == 0) return launch<float>(x, cu, r, y, M, m, rk, n, s);
   if (dtype == 1) return launch<__nv_bfloat16>(x, cu, r, y, M, m, rk, n, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The two-pass bf16 body. ws: splits x M x rk f32; t: M x rk bf16; the
+// wrapper's plan gives splits and the three grids. Returns a cudaError_t.
+extern "C" int cur_matmul_tc_launch(const void* x, const void* cu,
+                                    const void* r, void* y, void* ws, void* t,
+                                    int M, int m, int rk, int n, int splits,
+                                    int grid1, int grid2, int grid_r,
+                                    void* stream) {
+  return tc::launch(x, cu, r, y, ws, t, M, m, rk, n, splits, grid1, grid2,
+                    grid_r, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each source under ``src/repro_torch/csrc/`` becomes one shared library with
-a plain C interface, named by a hash of its source and the compiler flags,
-under ``build/kernels/`` at the root of the checkout. A library that exists
+a plain C interface, named by a hash of its source, every header beside it
+(``csrc/*.cuh``, which the sources include) and the compiler flags, under
+``build/kernels/`` at the root of the checkout. A library that exists
 is reused; a missing one is built at first use. ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.
 
@@ -38,9 +39,11 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
@@ -80,6 +83,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def raw_stream(device_index: int) -> int:
+    """The handle of the device's current CUDA stream, for a launch. The
+    call Triton's launcher makes: ``torch.cuda.current_stream()`` builds a
+    Stream object each time, which costs more host time than the launch."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(err: int, what: str) -> None:

@@ -65,6 +65,70 @@ def test_flash_kernel_matches_plain(gen, B, H, K, S, d, win, causal, dtype):
     assert rel_err(o.cpu(), ref.cpu()) < _TOL[dtype]
 
 
+@pytest.mark.parametrize("M,m,rk,n", [
+    (2048, 4096, 256, 4096), (2048, 4096, 256, 1024),
+    (2048, 4096, 256, 14336),                  # wq, wk, w_gate at r_max 256
+    (512, 1024, 16, 1024), (512, 1024, 24, 1024), (1024, 2048, 512, 1024),
+    (1024, 1000, 64, 520),                     # split edge off a slice edge
+    (300, 512, 40, 264)])                      # ragged M and last n tile
+def test_cur_matmul_two_pass_body_matches_plain(gen, M, m, rk, n):
+    x, cu, r = (_randn(gen, s, torch.bfloat16) * sc for s, sc in
+                (((M, m), 1.0), ((m, rk), m ** -0.5), ((rk, n), rk ** -0.5)))
+    assert cm.plan(M, m, rk, n, torch.bfloat16).body == "tc"
+    before = cm.launches
+    y = cm.cur_matmul(x, cu, r)
+    torch.cuda.synchronize()
+    assert cm.launches == before + 1
+    assert rel_err(y.cpu(), cur_matmul_ref(x, cu, r).cpu()) < 2e-2
+
+
+@pytest.mark.parametrize("M,m,rk,n", [(2048, 4096, 256, 14336),
+                                      (96, 100, 24, 200)])
+def test_cur_matmul_repeat_is_bit_identical(gen, M, m, rk, n):
+    x, cu, r = (_randn(gen, s, torch.bfloat16) for s in
+                ((M, m), (m, rk), (rk, n)))
+    y0 = cm.cur_matmul(x, cu, r)
+    y1 = cm.cur_matmul(x, cu, r)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1)
+
+
+@pytest.mark.parametrize("B,H,K,S,d,win", [
+    (4, 32, 8, 512, 128, 0), (2, 32, 8, 512, 128, 128),
+    (1, 8, 2, 1024, 64, 0), (1, 8, 2, 1024, 64, 100)])
+def test_flash_kernel_main_shapes_match_plain(gen, B, H, K, S, d, win):
+    q = _randn(gen, (B, H, S, d), torch.bfloat16)
+    k = _randn(gen, (B, K, S, d), torch.bfloat16)
+    v = _randn(gen, (B, K, S, d), torch.bfloat16)
+    scale = d ** -0.5
+    o = fa.flash_attention(q, k, v, window=win, scale=scale)
+    o2 = fa.flash_attention(q, k, v, window=win, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
+    ref = flash_attention_ref(q, k, v, window=win, scale=scale)
+    assert rel_err(o.cpu(), ref.cpu()) < 2e-2
+
+
+def test_unaligned_bf16_inputs_take_the_untiled_bodies(gen):
+    """A base pointer off 16 bytes cannot be described by TMA: the wrappers
+    route it to cur_matmul's one-pass body and flash's mma body."""
+    def off(shape):      # a contiguous view 2 bytes into a buffer
+        n = 1
+        for s in shape:
+            n *= s
+        buf = _randn(gen, (n + 8,), torch.bfloat16)
+        return buf[1:n + 1].view(shape)
+    x, cu, r = off((256, 512)), off((512, 64)), off((64, 256))
+    assert x.data_ptr() % 16 != 0
+    y = cm.cur_matmul(x, cu, r)
+    assert rel_err(y.cpu(), cur_matmul_ref(x, cu, r).cpu()) < 2e-2
+    q, k, v = off((1, 4, 128, 64)), off((1, 2, 128, 64)), off((1, 2, 128, 64))
+    assert fa.plan(1, 4, 128, 64, torch.bfloat16, aligned=False).body == "mma"
+    o = fa.flash_attention(q, k, v, scale=0.125)
+    ref = flash_attention_ref(q, k, v, scale=0.125)
+    assert rel_err(o.cpu(), ref.cpu()) < 2e-2
+
+
 def test_apply_w_routes_folded_weights_through_kernel(gen):
     x = _randn(gen, (4, 16, 256), torch.float32)
     w = {"CU": _randn(gen, (256, 32), torch.float32),

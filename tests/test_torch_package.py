@@ -203,4 +203,21 @@ def test_kernel_sources_and_build_dir_exist():
     for name in _build.KERNELS:
         assert (_build.SRC_DIR / f"{name}.cu").is_file()
         assert _build.lib_path(name).parent == _build.BUILD_DIR
+    assert (_build.SRC_DIR / "hopper.cuh").is_file()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_lib_path_hashes_the_headers(tmp_path, monkeypatch):
+    """A library is named by its source and every ``csrc/*.cuh`` header,
+    so an edited header never loads a stale build."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    first = _build.lib_path("k")
+    assert _build.lib_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build.lib_path("k")
+    assert second != first and second.parent == _build.BUILD_DIR
+    (tmp_path / "g.cuh").write_text("// another header\n")
+    assert _build.lib_path("k") != second
