@@ -12,7 +12,9 @@ nonzero:
   3. kernels  each kernel against its plain PyTorch version (both bodies
               of cur_matmul; bit-identical repeats), scale-relative
               max error < 2e-5 (f32) / < 2e-2 (bf16); paged_attention
-              < 1e-5 / 2e-2 (tests/test_paged_attention.py's bounds); the
+              < 1e-5 / 2e-2 (tests/test_paged_attention.py's bounds), on
+              that file's grid and on split tables (dead splits, windows
+              inside a split, q_span, r 8 .. 256, bs 4 .. 32); the
               flash kernel's zero-padded feature dims (CUR-KV ranks)
   4. times    kernel, plain version and one library call at the main
               paths' shapes (median of 25 launches, CUDA events), beside
@@ -37,9 +39,9 @@ nonzero:
               bytes and the launches of all three kernels, with checks
   8. split    device time by kernel (torch.profiler, after every timed
               phase): cur_matmul per weight and pass against the
-              torch.matmul chain, flash_attention against SDPA, and one
-              traced folded perplexity pass (busy and idle share, top
-              kernels)
+              torch.matmul chain, flash_attention and paged_attention
+              against SDPA, and one traced folded perplexity pass (busy
+              and idle share, top kernels)
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernel table.
@@ -70,6 +72,8 @@ FLASH_SHAPE = (4, 32, 8, 512, 128)            # B, H, K, S, d
 CURE_RUNS = 4                                 # 1 cold + 3 warm cure() runs
 PAGED_SHAPE = (8, 8, 4, 16, 69)               # B, K, G, bs, maxb (serving)
 KV_RANK = 64                                  # CUR-KV pool rank, hd / 2
+# workload B's decode contexts (prompts 256 / 512 / 1024 + up to 64 tokens)
+RAGGED_CTX = (256, 375, 494, 613, 732, 851, 970, 1088)
 
 
 def say(*a):
@@ -385,14 +389,53 @@ def phase_kernels():
         check_paged(f"paged_attention q_span={span} B={B} K={K} G={G} "
                     f"r={r} window={win} f32", (q, kp, vp, table, ctx), f32,
                     window=win, span=span)
+    # split-KV: tables the plan splits, with splits that hold no live
+    # entry (ragged contexts, the inactive slot), windows that start
+    # inside a split, rows past one m16 tile, r 8 .. 256, bs 4 .. 32
+    for B, K, G, r, bs, maxb, win in [
+            (3, 2, 4, 16, 4, 80, 0), (3, 2, 4, 8, 8, 40, 0),
+            (3, 2, 4, 12, 8, 40, 0), (4, 2, 4, 64, 16, 69, 0),
+            (4, 2, 4, 128, 16, 69, 100), (2, 2, 8, 256, 32, 40, 0),
+            (2, 1, 20, 128, 16, 69, 37)]:
+        for dt in (bf16, f32):
+            p = pa.plan(B, K, G, r, bs, maxb, dt,
+                        sms=pa._sm_count(torch.cuda.current_device()))
+            check_paged(f"paged_attention B={B} K={K} G={G} r={r} bs={bs} "
+                        f"maxb={maxb} window={win} {dt} ({p.body}, "
+                        f"{p.splits} splits of {p.entries_per_split})",
+                        _paged_case(B, K, G, r, B * maxb, bs, maxb,
+                                    dtype=dt), dt, window=win,
+                        zero_last=True)
+    for span, win in [(2, 0), (3, 21), (4, 0)]:
+        q, kp, vp, table, ctx = _paged_case(3, 2, 4 * span, 64, 120, 8, 40,
+                                            inactive_last=False)
+        ctx = torch.clamp(torch.minimum(
+            ctx, (table >= 0).sum(1).int() * 8 - span), min=0)
+        check_paged(f"paged_attention q_span={span} B=3 K=2 G={4 * span} "
+                    f"r=64 bs=8 maxb=40 window={win} f32 (split)",
+                    (q, kp, vp, table, ctx), f32, window=win, span=span)
+        check_paged(f"paged_attention q_span={span} B=3 K=2 G={4 * span} "
+                    f"r=64 bs=8 maxb=40 window={win} bf16 (split)",
+                    tuple(t.to(bf16) if t.is_floating_point() else t
+                          for t in (q, kp, vp, table, ctx)), bf16,
+                    window=win, span=span)
     Bp, Kp, Gp, bsp, maxbp = PAGED_SHAPE
     for r in (128, KV_RANK):
         for dt in (bf16, f32):
+            args = _paged_case(Bp, Kp, Gp, r, Bp * maxbp, bsp, maxbp,
+                               dtype=dt)
             check_paged(f"paged_attention B={Bp} K={Kp} G={Gp} r={r} "
-                        f"bs={bsp} maxb={maxbp} {dt}",
-                        _paged_case(Bp, Kp, Gp, r, Bp * maxbp, bsp, maxbp,
-                                    dtype=dt), dt, main=dt == bf16,
-                        zero_last=True)
+                        f"bs={bsp} maxb={maxbp} {dt}", args, dt,
+                        main=dt == bf16, zero_last=True)
+            if dt == bf16:
+                # the splits merge in a fixed order: the same bits again
+                y = pa.paged_attention(*args)
+                same = all(torch.equal(y, pa.paged_attention(*args))
+                           for _ in range(3))
+                say(f"  paged_attention r={r} serving shape repeat "
+                    f"{'bit-identical' if same else 'DIFFERS'}")
+                if not same:
+                    failures.append(f"paged_attention repeat r={r}")
     z = torch.zeros
     for label, args, span in [
             ("pool/query mismatch", (z((2, 2, 2, 8), device="cuda"),
@@ -435,6 +478,47 @@ def phase_kernels():
     if failures:
         raise SystemExit(f"kernel checks failed: {failures}")
     return worst
+
+
+def _paged_inputs(gen, r, ctxs=None):
+    """bf16 inputs of paged_attention at the serving shape (PAGED_SHAPE):
+    a random pool of B maxb blocks, each slot's table a random permutation
+    of its blocks; ctx maxb bs - 1 for every slot, or ``ctxs`` (then the
+    entries past a slot's context are unassigned, as the scheduler leaves
+    them)."""
+    import torch
+    B, K, G, bs, maxb = PAGED_SHAPE
+    bf16 = torch.bfloat16
+    q = _randn(gen, (B, K, G, r), bf16)
+    kp = _randn(gen, (B * maxb, bs, K, r), bf16)
+    vp = _randn(gen, (B * maxb, bs, K, r), bf16)
+    table = torch.randperm(B * maxb, device="cuda").reshape(B, maxb).int()
+    if ctxs is None:
+        ctx = torch.full((B,), maxb * bs - 1, dtype=torch.int32,
+                         device="cuda")
+    else:
+        ctx = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+        j = torch.arange(maxb, device="cuda")[None]
+        table = torch.where(j <= ctx[:, None] // bs, table, -1).int()
+    return q, kp, vp, table, ctx
+
+
+def _sdpa_on_gathered(q, kp, vp, table, ctx):
+    """The library yardstick of paged_attention, gather excluded: SDPA
+    over the pool gathered once into a contiguous (B, K, L, r) view with a
+    boolean mask. Returns the call to time."""
+    import torch
+    import torch.nn.functional as F
+    B, maxb = table.shape
+    _, bs, K, r = kp.shape
+    L = maxb * bs
+    tb = table.long().clamp(min=0)
+    kc = kp[tb].reshape(B, L, K, r).transpose(1, 2).contiguous()
+    vc = vp[tb].reshape(B, L, K, r).transpose(1, 2).contiguous()
+    mask = (torch.arange(L, device="cuda")[None] <= ctx[:, None].long()
+            )[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask,
+                                                  scale=1.0)
 
 
 def phase_times():
@@ -502,38 +586,35 @@ def phase_times():
                                "bound_by": by}
 
     # paged_attention at the serving path's full-width decode step: every
-    # slot at the longest context phase 7 reaches (all maxb blocks live)
+    # slot at the longest context phase 7 reaches (all maxb blocks live),
+    # then at workload B's spread of contexts (ragged: the splits of the
+    # shorter slots hold no live entry)
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     B, K, G, bs, maxb = PAGED_SHAPE
-    for r in (128, KV_RANK):
-        q = _randn(gen, (B, K, G, r), bf16)
-        kp = _randn(gen, (B * maxb, bs, K, r), bf16)
-        vp = _randn(gen, (B * maxb, bs, K, r), bf16)
-        table = torch.randperm(B * maxb, device="cuda").reshape(
-            B, maxb).int()
-        ctx = torch.full((B,), maxb * bs - 1, dtype=torch.int32,
-                         device="cuda")
+    for r, ctxs in [(128, None), (KV_RANK, None), (128, RAGGED_CTX),
+                    (KV_RANK, RAGGED_CTX)]:
+        q, kp, vp, table, ctx = _paged_inputs(gen, r, ctxs)
         ms = median_ms(lambda: pa.paged_attention(q, kp, vp, table, ctx))
         plain = median_ms(lambda: paged_attention_ref(q, kp, vp, table, ctx))
-        # library yardstick, gather excluded: SDPA over the pool gathered
-        # once into a contiguous (B, K, L, r) view with a boolean mask
-        L = maxb * bs
-        kc = kp[table.long()].reshape(B, L, K, r).transpose(1, 2).contiguous()
-        vc = vp[table.long()].reshape(B, L, K, r).transpose(1, 2).contiguous()
-        mask = (torch.arange(L, device="cuda")[None] <= ctx[:, None].long()
-                )[:, None, None, :]
-        lib = median_ms(lambda: F.scaled_dot_product_attention(
-            q, kc, vc, attn_mask=mask, scale=1.0))
+        lib = median_ms(_sdpa_on_gathered(q, kp, vp, table, ctx))
         live = int((ctx.long() + 1).sum()) * K       # live (slot, head, t)
         nbytes = 2 * (2 * live * r + 2 * B * K * G * r)
         flops = 4 * live * G * r
         bnd, by = bound_ms(nbytes, flops)
+        p = pa.plan(B, K, G, r, bs, maxb, bf16,
+                    sms=pa._sm_count(torch.cuda.current_device()))
+        span = (f"ctx={maxb * bs - 1}" if ctxs is None else
+                f"ctx={min(ctxs)}-{max(ctxs)} (ragged)")
         say(f"  paged_attention B={B} K={K} G={G} r={r} bs={bs} maxb={maxb}"
-            f" ctx={maxb * bs - 1}: kernel {ms:.4f} ms, plain {plain:.4f} "
-            f"ms, library (SDPA, gather excluded) {lib:.4f} ms, bound "
-            f"{bnd:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s")
-        if r == 128:
+            f" {span} ({p.body}, {p.splits} splits of "
+            f"{p.entries_per_split} entries, {p.grid[0] * p.grid[1]} "
+            f"blocks): kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+            f"(SDPA, gather excluded) {lib:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}); {nbytes / ms / 1e6:.1f} GB/s")
+        say(f"    host {host_ms(lambda: pa.paged_attention(q, kp, vp, table, ctx)):.4f}"
+            f" ms per call (launches only)")
+        if r == 128 and ctxs is None:
             rows["paged_attention"] = {"ms": ms, "plain_ms": plain,
                                        "library_ms": lib, "bound_ms": bnd,
                                        "bound_by": by}
@@ -838,7 +919,8 @@ def phase_serve(run):
 def phase_split(run):
     """Device time by kernel (torch.profiler), run last so that no profiler
     window precedes a timed phase: cur_matmul per weight and pass and the
-    torch.matmul chain, flash_attention and SDPA at the main shapes; then
+    torch.matmul chain, flash_attention and paged_attention and SDPA at
+    the main shapes (phase 4's); then
     one folded perplexity pass of phase 6's model, its wall time against
     its kernels' busy time and the kernels that took the most."""
     import torch
@@ -848,6 +930,7 @@ def phase_split(run):
     from repro_torch.data.tokens import DataConfig, SyntheticLM
     from repro_torch.kernels.cur_matmul import cur_matmul as cm
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.train.evaluate import perplexity
     say("== phase 8: device time by kernel (torch.profiler, bf16)")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -872,6 +955,16 @@ def phase_split(run):
         q, k, v, is_causal=True, scale=scale, enable_gqa=True))
     say(f"  flash_attention B={B} H={H} K={K} S={S} d={d} causal: "
         f"{_total(dev)}; SDPA {_total(lib)} (mean of 25 calls)")
+    B, K, G, bs, maxb = PAGED_SHAPE
+    for r, ctxs in [(128, None), (KV_RANK, None), (128, RAGGED_CTX)]:
+        args = _paged_inputs(gen, r, ctxs)
+        dev = kernel_ms(lambda: pa.paged_attention(*args))
+        lib = kernel_ms(_sdpa_on_gathered(*args))
+        span = (f"ctx={maxb * bs - 1}" if ctxs is None else
+                f"ctx={min(ctxs)}-{max(ctxs)} (ragged)")
+        say(f"  paged_attention B={B} K={K} G={G} r={r} bs={bs} {span}: "
+            f"{_total(dev)}; SDPA (gather excluded) {_total(lib)} (mean of "
+            f"25 calls)")
     ds = SyntheticLM(DataConfig(run.cfg.vocab_size, 512, 4, seed=1), "cuda")
     evl = [ds.batch_at(1000 + i) for i in range(2)]
     perplexity(run.cured_params, run.cured_cfg, evl)
@@ -896,9 +989,11 @@ def phase_split(run):
 def profile_decode(params, cfg, wl):
     """Where a decode window's time goes: one 16-step window of 8 slots at
     workload B's prompts (dense pool) timed alone, then the next one under
-    torch.profiler. Prints the windows' wall times, the device's busy and
-    idle share (kernel time over traced wall time) and the kernels that
-    took the most device time. A measurement, not a check."""
+    torch.profiler. Prints the windows' step counts and wall times, the
+    device's busy time per window and per step and its idle share (kernel
+    time over traced wall time), paged_attention's launches and device
+    time per window and per step, and the kernels that took the most
+    device time in the window. A measurement, not a check."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -931,19 +1026,26 @@ def profile_decode(params, cfg, wl):
             if getattr(e, "device_type", None) == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in rows)
+    paged = [e for e in rows if "paged" in e.key]
+    paged_us = sum(e.self_device_time_total for e in paged)
+    paged_n = sum(e.count for e in paged)
     say(f"  decode window untraced: {plain_steps} steps, wall "
         f"{plain_wall * 1e3:.1f} ms ({plain_wall * 1e3 / plain_steps:.2f} "
         f"ms/step)")
     say(f"  profile: the next window, {steps} steps, 8 slots at ctx "
         f"{int(ctx.min())}-{int(ctx.max())}: wall {wall * 1e3:.1f} ms "
         f"({wall * 1e3 / steps:.2f} ms/step, traced), kernels busy "
-        f"{busy_us / 1e3:.1f} ms, device idle share "
-        f"{1 - busy_us / 1e6 / wall:.3f}")
+        f"{busy_us / 1e3:.3f} ms per window, {busy_us / 1e3 / steps:.3f} ms "
+        f"per step, device idle share {1 - busy_us / 1e6 / wall:.3f}")
+    say(f"  profile: paged_attention {paged_n} launches in the window "
+        f"({paged_n / steps:g} per step), {paged_us / 1e3:.3f} ms per "
+        f"window, {paged_us / 1e3 / steps:.3f} ms per step, "
+        f"{paged_us / max(paged_n, 1):.2f} us per launch")
     if not rows:
         say("  profile: the profiler saw no device time")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-        say(f"    {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{e.count:6d} x {e.key[:90]}")
+        say(f"    {e.self_device_time_total / 1e3:9.3f} ms per window "
+            f"{e.count:6d} x {e.key[:80]}")
     del srv
     torch.cuda.empty_cache()
 

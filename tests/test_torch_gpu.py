@@ -204,6 +204,81 @@ def test_paged_kernel_q_span_matches_plain(gen, B, K, G, r, nb, bs, maxb,
     assert rel_err(y.cpu(), yr.cpu()) < _PAGED_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,G,r,bs,maxb,win", [
+    (3, 2, 4, 16, 4, 80, 0),       # splits > 1, dead splits, inactive slot
+    (3, 2, 4, 8, 8, 40, 0),        # r 8, zero-padded to 16
+    (3, 2, 4, 12, 8, 40, 0),       # r 12: plain loads (rows not 16 bytes)
+    (4, 2, 4, 64, 16, 69, 0),
+    (4, 2, 4, 128, 16, 69, 100),   # a window that starts inside a split
+    (2, 2, 8, 256, 32, 40, 0),     # r 256, bs 32
+    (2, 1, 20, 128, 16, 69, 37),   # rows past one m16 tile, window
+])
+def test_paged_kernel_splits_match_plain(gen, B, K, G, r, bs, maxb, win,
+                                         dtype):
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    p = pa.plan(B, K, G, r, bs, maxb, dtype,
+                sms=pa._sm_count(torch.cuda.current_device()))
+    assert p.splits > 1
+    args = _paged_case(B, K, G, r, B * maxb, bs, maxb, dtype)
+    before = pa.launches
+    y = pa.paged_attention(*args, window=win)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    yr = paged_attention_ref(*args, window=win)
+    assert rel_err(y.cpu(), yr.cpu()) < _PAGED_TOL[dtype]
+    assert not y[-1].any()                           # inactive slot
+    # the counters are back at 0: a second call gives the same bits
+    assert torch.equal(y, pa.paged_attention(*args, window=win))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("span,win", [(2, 0), (3, 21), (4, 0)])
+def test_paged_kernel_q_span_with_splits(gen, span, win, dtype):
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    B, K, G, r, bs, maxb = 3, 2, 4 * span, 64, 8, 40
+    q, kp, vp, table, ctx = _paged_case(B, K, G, r, B * maxb, bs, maxb,
+                                        dtype, inactive_last=False)
+    ctx = torch.clamp(torch.minimum(
+        ctx, (table >= 0).sum(1).int() * bs - span), min=0)
+    assert pa.plan(B, K, G, r, bs, maxb, dtype).splits > 1
+    y = pa.paged_attention(q, kp, vp, table, ctx, window=win, q_span=span)
+    yr = paged_attention_ref(q, kp, vp, table, ctx, window=win, q_span=span)
+    assert rel_err(y.cpu(), yr.cpu()) < _PAGED_TOL[dtype]
+
+
+def test_paged_kernel_strided_pools_match_plain(gen):
+    """Pools that are views of a wider buffer (row and head strides of
+    the buffer), as one layer's slice of a stacked pool."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    B, K, G, r, bs, maxb = 4, 2, 4, 64, 16, 40
+    q, kp, vp, table, ctx = _paged_case(B, K, G, r, B * maxb, bs, maxb,
+                                        torch.bfloat16)
+    wide_k = torch.zeros(B * maxb, bs, K, r + 64, dtype=torch.bfloat16,
+                         device="cuda")
+    wide_v = torch.zeros_like(wide_k)
+    wide_k[..., 8:8 + r] = kp
+    wide_v[..., 8:8 + r] = vp
+    kv, vv = wide_k[..., 8:8 + r], wide_v[..., 8:8 + r]
+    assert not kv.is_contiguous()
+    y = pa.paged_attention(q, kv, vv, table, ctx)
+    yr = paged_attention_ref(q, kp, vp, table, ctx)
+    assert rel_err(y.cpu(), yr.cpu()) < _PAGED_TOL[torch.bfloat16]
+
+
+def test_paged_kernel_repeat_is_bit_identical(gen):
+    """At the serving shape (8 splits per (slot, kv-head)): the splits are
+    merged in a fixed order, so two calls give the same bits."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    args = _paged_case(8, 8, 4, 128, 552, 16, 69, torch.bfloat16)
+    y = pa.paged_attention(*args)
+    for _ in range(3):
+        assert torch.equal(y, pa.paged_attention(*args))
+
+
 def test_paged_kernel_raises_on_bad_shapes(gen):
     from repro_torch.kernels.paged_attention import paged_attention as pa
     z = torch.zeros

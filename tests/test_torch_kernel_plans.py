@@ -1,12 +1,16 @@
-"""The launch plans of the port's two redesigned kernels, on the CPU.
+"""The launch plans of the port's three kernels, on the CPU.
 
-``cur_matmul.plan`` and ``flash_attention.plan`` are plain functions of
-the shape that the wrappers launch with; ``work_items`` and ``kv_tiles``
-mirror the sources' tile walks. Held here over the JAX suite's case grids
-(tests/test_kernels.py), the card-only grids (tests/test_torch_gpu.py) and
-the main path's shapes (chip_smoke.py): every output tile is covered
-exactly once, pass 1's splits partition m, shapes TMA cannot describe take
-the one-pass body, and the workspace matches its formula."""
+``cur_matmul.plan``, ``flash_attention.plan`` and ``paged_attention.plan``
+are plain functions of the shape that the wrappers launch with;
+``work_items`` and ``kv_tiles`` mirror the sources' tile walks, and the
+paged plan's entries per split give its table runs. Held here over the
+JAX suite's case grids (tests/test_kernels.py,
+tests/test_paged_attention.py), the card-only
+grids (tests/test_torch_gpu.py) and the main path's shapes
+(chip_smoke.py): every output tile and table entry is covered exactly
+once, pass 1's splits partition m, shapes TMA cannot describe take the
+one-pass body, shared memory fits, and the workspace matches its
+formula."""
 import itertools
 
 import pytest
@@ -14,6 +18,7 @@ import torch
 
 from repro_torch.kernels.cur_matmul import cur_matmul as cm
 from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.paged_attention import paged_attention as pa
 
 _CUR_CASES = [
     (256, 128, 32, 256), (128, 256, 64, 512), (512, 64, 16, 128),
@@ -172,3 +177,129 @@ def test_flash_plan_shared_memory_fits_two_blocks_per_sm(d):
     for aligned in (True, False):
         p = fa.plan(1, 1, 64, d, torch.bfloat16, aligned=aligned)
         assert 2 * p.smem_bytes <= _SMEM_LIMIT
+
+
+_SMEM_PER_SM = 233_472                         # an SM's shared memory
+_PAGED_SERVING = (8, 8, 4, 128, 16, 69)        # B, K, G, r, bs, maxb
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16, 32])
+def test_paged_splits_cover_every_entry_once(bs):
+    for maxb in range(1, 129):
+        for B, K, G in ((1, 1, 4), (2, 2, 2), (8, 8, 4), (64, 8, 4)):
+            p = pa.plan(B, K, G, 128, bs, maxb, torch.bfloat16)
+            e = p.entries_per_split     # split s: entries [s e, (s + 1) e)
+            runs = [(s * e, min((s + 1) * e, maxb)) for s in range(p.splits)]
+            assert len(runs) == p.splits >= 1
+            assert p.grid == (B * K, p.splits)
+            # contiguous, non-empty, in order, together [0, maxb)
+            assert runs[0][0] == 0 and runs[-1][1] == maxb
+            assert all(a < b for a, b in runs)
+            assert all(x[1] == y[0] for x, y in zip(runs, runs[1:]))
+            assert max(b - a for a, b in runs) == p.entries_per_split
+            assert p.entries_per_split <= pa.MAX_ENTRIES
+            # a split covers at least a stage's worth of tokens, unless
+            # the whole table is one split
+            if p.splits > 1:
+                assert p.entries_per_split * bs >= pa.MIN_SPLIT_TOKENS
+                assert B * K * p.splits <= (
+                    pa.blocks_per_sm(p.smem_bytes) * pa.SMS)
+
+
+def test_paged_serving_shape_fills_the_card():
+    B, K, G, r, bs, maxb = _PAGED_SERVING
+    # one wave: two blocks per SM at r 128 (a 104 KB ring), three at r 64
+    for rank, per_sm, splits, eps in ((128, 2, 4, 18), (64, 3, 6, 12)):
+        p = pa.plan(B, K, G, rank, bs, maxb, torch.bfloat16)
+        assert p.body == "mma"
+        assert pa.blocks_per_sm(p.smem_bytes) == per_sm
+        assert (p.splits, p.entries_per_split) == (splits, eps)
+        assert p.grid == (64, splits) and B * K * p.splits >= pa.SMS
+        assert B * K * p.splits <= per_sm * pa.SMS < B * K * (p.splits + 1)
+    # a card of other size gets one wave as well
+    p = pa.plan(B, K, G, 128, bs, maxb, torch.bfloat16, sms=66)
+    assert (p.splits, p.entries_per_split) == (2, 35)
+
+
+@pytest.mark.parametrize("B,K", [(1, 1), (8, 8), (64, 8), (600, 1)])
+def test_paged_one_entry_table_is_one_split(B, K):
+    for dtype in (torch.float32, torch.bfloat16):
+        p = pa.plan(B, K, 4, 64, 16, 1, dtype)
+        assert p.splits == 1 and p.workspace_bytes == 0
+    # a full grid writes the output directly too
+    assert pa.plan(600, 1, 4, 128, 16, 69, torch.bfloat16).splits == 1
+
+
+@pytest.mark.parametrize("G", [1, 4, 16, 17, 32, 64])
+@pytest.mark.parametrize("r", [8, 16, 24, 64, 128, 200, 256])
+def test_paged_shared_memory_fits(G, r):
+    for maxb in (1, 69, 4096, 64 * pa.MAX_ENTRIES):
+        # bf16: two blocks per SM even with the longest live list
+        p = pa.plan(1, 1, G, r, 16, maxb, torch.bfloat16)
+        assert 2 * (p.smem_bytes + 1024) <= _SMEM_PER_SM
+        # f32 (q rows in shared memory as well): one block at least
+        p = pa.plan(1, 1, G, r, 16, maxb, torch.float32)
+        assert p.smem_bytes <= _SMEM_LIMIT
+    with pytest.raises(ValueError, match="longer"):
+        pa.plan(1, 1, G, r, 16, 64 * pa.MAX_ENTRIES + 1, torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,K,G,r,bs,maxb", [
+    _PAGED_SERVING, (8, 8, 4, 64, 16, 69), (3, 2, 2, 16, 4, 5),
+    (1, 1, 64, 256, 16, 512), (2, 1, 8, 8, 4, 40), (4, 4, 16, 128, 32, 9)])
+def test_paged_workspace_matches_formula(B, K, G, r, bs, maxb):
+    for dtype in (torch.float32, torch.bfloat16):
+        p = pa.plan(B, K, G, r, bs, maxb, dtype)
+        want = 4 * B * K * p.splits * G * (r + 2) if p.splits > 1 else 0
+        assert p.workspace_bytes == want
+        es = 4 if dtype == torch.float32 else 2
+        ring = pa.STAGES * 2 * p.stage_tokens * (p.rank + 16 // es) * es
+        q_rows = -(-G // 16) * 16 * (p.rank + 4) * 4 if es == 4 else 0
+        assert p.smem_bytes == (ring + q_rows + pa.STAGES * p.stage_tokens
+                                * 4 + -(-12 * p.entries_per_split // 16) * 16
+                                + 2 * pa.MAX_ROWS * 4 + 16)
+
+
+@pytest.mark.parametrize("r", [1, 8, 15, 16, 17, 32, 48, 64, 96, 128, 129,
+                               256])
+def test_paged_plan_routes_by_dtype_and_rank(r):
+    want = next(w for w in (16, 32, 64, 128, 256) if w >= r)
+    bf = pa.plan(2, 2, 4, r, 16, 8, torch.bfloat16)
+    f32 = pa.plan(2, 2, 4, r, 16, 8, torch.float32)
+    assert (bf.body, f32.body) == ("mma", "fma")
+    assert bf.rank == f32.rank == want
+    # a stage holds ~16 KB of K: 64 tokens while that fits
+    assert bf.stage_tokens == min(64, 8192 // want)
+    assert f32.stage_tokens == min(64, 4096 // want)
+    assert bf.threads == f32.threads == 128
+    for bad in (0, 257):
+        with pytest.raises(ValueError, match="rank"):
+            pa.plan(2, 2, 4, bad, 16, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="rows"):
+        pa.plan(2, 2, 65, r, 16, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        pa.plan(2, 2, 4, r, 16, 8, torch.float16)
+
+
+def test_paged_scratch_counters_stay_zero_as_they_grow():
+    """The split scratch is [counters | workspace] per (device, stream):
+    counters must read zero whenever a call needs more of them than the
+    buffer had, even where an earlier call's workspace was."""
+    dev = torch.device("cpu")
+    key = (dev.index, -1)
+    pa._SCRATCH.pop(key, None)
+    try:
+        cnt, ws = pa._scratch(dev, -1, 64, 4096)
+        buf, head = pa._SCRATCH[key]
+        assert (cnt, ws - cnt) == (buf.data_ptr(), head) and head >= 4 * 64
+        assert ws % 16 == 0 and buf.numel() >= head + 4096
+        buf.fill_(0xFF)                 # a kernel's workspace, written
+        buf[:head] = 0                  # its counters, reset by the kernel
+        cnt, ws = pa._scratch(dev, -1, 64, 1024)       # reused as it is
+        assert pa._SCRATCH[key][0] is buf
+        cnt, ws = pa._scratch(dev, -1, 1000, 16)       # more counters
+        buf, head = pa._SCRATCH[key]
+        assert head >= 4 * 1000 and ws - cnt == head
+        assert not buf[:head].any()
+    finally:
+        pa._SCRATCH.pop(key, None)
