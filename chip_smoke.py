@@ -15,16 +15,26 @@ nonzero:
               < 1e-5 / 2e-2 (tests/test_paged_attention.py's bounds), on
               that file's grid and on split tables (dead splits, windows
               inside a split, q_span, r 8 .. 256, bs 4 .. 32); the
-              flash kernel's zero-padded feature dims (CUR-KV ranks)
+              flash kernel's zero-padded feature dims (CUR-KV ranks);
+              the speculative verify shapes: paged_attention at q_span
+              2 / 5 / 8 (G' 8 / 20 / 32) on split tables with ragged
+              contexts, cur_matmul at M 40 (8 slots x 5 positions)
   4. times    kernel, plain version and one library call at the main
               paths' shapes (median of 25 launches, CUDA events), beside
               the least time the card could take (bound), with achieved
               GB/s and TFLOP/s and the host's time per call; each
-              kernel's registers and spills from the -Xptxas -v log
+              kernel's registers and spills from the -Xptxas -v log;
+              the verify shapes (paged_attention q_span 5, cur_matmul
+              M 40) on lines of their own
   5. small    the folded forward at a small f32 size on the card against
               the same params on the CPU (plain versions), 2e-5; then
               that model served on the card and on the CPU, dense and
-              CUR-KV pools: the greedy tokens must be identical
+              CUR-KV pools: the greedy tokens must be identical; the
+              original model served with speculation (k 3, draft self
+              and self:1): card spec-on == card spec-off == CPU spec-on;
+              a fixed chaos plan (transient prefill/decode errors, a
+              pool squeeze, latency spikes): the chaos-free tokens and
+              the same fault events on the card and the CPU
   6. main     ``cure()`` on full-width llama3.1-8b (random weights made on
               the card, 10 of 32 layers CURed at r_max 256), run
               ``CURE_RUNS`` times: the first (cold) run's stage times
@@ -36,12 +46,23 @@ nonzero:
               ``make_workload``) and workload B (loadgen burst, prompts
               256/512/1024, 64 new tokens), each on a dense pool and a
               CUR-KV pool at rank 64; per run tokens/s, TTFT, TPOT, pool
-              bytes and the launches of all three kernels, with checks
+              bytes and the launches of all three kernels, with checks;
+              then speculative serving at spec_k 4: (a) the original
+              model drafted by the CURed one (workload B, dense pool,
+              greedy, against its spec-off run), (b) the CURed model
+              drafted by itself (workload B, CUR-KV pool r 64), (c) (a)
+              on workload A at temperature 0.8, top-p 0.95; accept rate,
+              windows, draft/verify time, launches and the agreement
+              with spec-off; then a chaos plan on workload A run twice
+              (same events, every request finished, pool drained); last
+              a profiled decode window
   8. split    device time by kernel (torch.profiler, after every timed
               phase): cur_matmul per weight and pass against the
               torch.matmul chain, flash_attention and paged_attention
-              against SDPA, and one traced folded perplexity pass (busy
-              and idle share, top kernels)
+              against SDPA (also at the verify shape), and one traced
+              folded perplexity pass (busy and idle share, top kernels);
+              one speculative window of run (a) profiled by part (draft,
+              verify, paged_attention at q_span 5) and its host syncs
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernel table.
@@ -74,6 +95,22 @@ PAGED_SHAPE = (8, 8, 4, 16, 69)               # B, K, G, bs, maxb (serving)
 KV_RANK = 64                                  # CUR-KV pool rank, hd / 2
 # workload B's decode contexts (prompts 256 / 512 / 1024 + up to 64 tokens)
 RAGGED_CTX = (256, 375, 494, 613, 732, 851, 970, 1088)
+SPEC_K = 4                                    # draft tokens per window
+VERIFY_SPANS = (2, SPEC_K + 1, 8)             # q_span = k + 1 at k 1, 4, 7
+VERIFY_M = 8 * (SPEC_K + 1)                   # verify rows: 8 slots x 5
+# phase 5's chaos plan (a repro_torch.testing.FaultPlan as JSON)
+CHAOS_PLAN = {"seed": 11, "faults": [
+    {"kind": "transient_error", "start_step": 1, "end_step": 3,
+     "site": "prefill"},
+    {"kind": "transient_error", "start_step": 4, "end_step": 24,
+     "probability": 0.5, "site": "decode"},
+    {"kind": "pool_squeeze", "start_step": 5, "end_step": 12,
+     "magnitude": 0.5},
+    {"kind": "latency_spike", "start_step": 2, "end_step": 8,
+     "probability": 0.5, "magnitude": 0.002}]}
+# phase 7's: the same streams and a queue storm
+CHAOS_PLAN_7 = {"seed": 5, "faults": CHAOS_PLAN["faults"] + [
+    {"kind": "queue_storm", "start_step": 6, "end_step": 7, "n": 3}]}
 
 
 def say(*a):
@@ -267,7 +304,8 @@ def phase_kernels():
             failures.append(label)
         return abs_err if main else 0.0
 
-    cur_cases = [(CUR_M,) + CUR_SHAPES[k] + (dt, True)
+    cur_cases = [(M,) + CUR_SHAPES[k] + (dt, True)
+                 for M in (CUR_M, VERIFY_M)
                  for k in CUR_SHAPES for dt in (bf16, f32)]
     cur_cases += [(96, 100, 24, 200, f32, False),
                   (96, 100, 24, 200, bf16, False),    # fused body (m 100)
@@ -286,7 +324,7 @@ def phase_kernels():
         e = check(f"cur_matmul M={M} m={m} r={r} n={n} {dt} ({body})", y,
                   cur_matmul_ref(x, cu, rr), dt, main and dt == bf16)
         worst["cur_matmul"] = max(worst["cur_matmul"], e)
-        if dt == bf16 and (main or m == 100):
+        if dt == bf16 and (main or m == 100):   # main: M 2048 and 40
             # no atomics: a second call gives the same bits
             same = torch.equal(y, cm.cur_matmul(x, cu, rr))
             say(f"  cur_matmul M={M} m={m} r={r} n={n} repeat "
@@ -368,6 +406,7 @@ def phase_kernels():
             failures.append(label)
         if main:
             worst["paged_attention"] = max(worst["paged_attention"], abs_err)
+        return y
 
     for B, K, G, r, nb, bs, maxb, win in [
             (3, 2, 2, 16, 12, 4, 5, 0), (4, 4, 1, 8, 16, 8, 3, 0),
@@ -436,6 +475,29 @@ def phase_kernels():
                     f"{'bit-identical' if same else 'DIFFERS'}")
                 if not same:
                     failures.append(f"paged_attention repeat r={r}")
+    # the speculative verify layout at full width: span = k + 1 query
+    # positions per slot, row s G + g at position ctx + s (G' = 20 at
+    # spec_k 4: two m16 tiles), split tables with ragged contexts
+    for span in VERIFY_SPANS:
+        for r in (128, KV_RANK):
+            for dt in (bf16, f32):
+                args = _paged_inputs(gen, r, RAGGED_CTX, span=span, dtype=dt)
+                p = pa.plan(Bp, Kp, span * Gp, r, bsp, maxbp, dt,
+                            sms=pa._sm_count(torch.cuda.current_device()))
+                label = (f"paged_attention verify q_span={span} B={Bp} "
+                         f"K={Kp} G'={span * Gp} r={r} bs={bsp} "
+                         f"maxb={maxbp} ctx={min(RAGGED_CTX)}-"
+                         f"{max(RAGGED_CTX)} {dt} ({p.body}, {p.splits} "
+                         f"splits of {p.entries_per_split})")
+                y = check_paged(label, args, dt, main=dt == bf16, span=span)
+                same = all(torch.equal(y, pa.paged_attention(*args,
+                                                             q_span=span))
+                           for _ in range(2))
+                say(f"  {label} repeat "
+                    f"{'bit-identical' if same else 'DIFFERS'}")
+                if not same:
+                    failures.append(f"paged_attention verify repeat "
+                                    f"span={span} r={r} {dt}")
     z = torch.zeros
     for label, args, span in [
             ("pool/query mismatch", (z((2, 2, 2, 8), device="cuda"),
@@ -480,18 +542,19 @@ def phase_kernels():
     return worst
 
 
-def _paged_inputs(gen, r, ctxs=None):
-    """bf16 inputs of paged_attention at the serving shape (PAGED_SHAPE):
-    a random pool of B maxb blocks, each slot's table a random permutation
-    of its blocks; ctx maxb bs - 1 for every slot, or ``ctxs`` (then the
-    entries past a slot's context are unassigned, as the scheduler leaves
-    them)."""
+def _paged_inputs(gen, r, ctxs=None, span=1, dtype=None):
+    """Inputs of paged_attention at the serving shape (PAGED_SHAPE), bf16
+    unless ``dtype``: a random pool of B maxb blocks, each slot's table a
+    random permutation of its blocks; ctx maxb bs - 1 for every slot, or
+    ``ctxs`` (then the entries past a slot's last position are unassigned,
+    as the scheduler leaves them). ``span`` > 1 gives the verify layout:
+    span G query rows per (slot, kv head), the last at ctx + span - 1."""
     import torch
     B, K, G, bs, maxb = PAGED_SHAPE
-    bf16 = torch.bfloat16
-    q = _randn(gen, (B, K, G, r), bf16)
-    kp = _randn(gen, (B * maxb, bs, K, r), bf16)
-    vp = _randn(gen, (B * maxb, bs, K, r), bf16)
+    dtype = dtype or torch.bfloat16
+    q = _randn(gen, (B, K, span * G, r), dtype)
+    kp = _randn(gen, (B * maxb, bs, K, r), dtype)
+    vp = _randn(gen, (B * maxb, bs, K, r), dtype)
     table = torch.randperm(B * maxb, device="cuda").reshape(B, maxb).int()
     if ctxs is None:
         ctx = torch.full((B,), maxb * bs - 1, dtype=torch.int32,
@@ -499,14 +562,16 @@ def _paged_inputs(gen, r, ctxs=None):
     else:
         ctx = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
         j = torch.arange(maxb, device="cuda")[None]
-        table = torch.where(j <= ctx[:, None] // bs, table, -1).int()
+        table = torch.where(j <= (ctx[:, None] + span - 1) // bs, table,
+                            -1).int()
     return q, kp, vp, table, ctx
 
 
-def _sdpa_on_gathered(q, kp, vp, table, ctx):
+def _sdpa_on_gathered(q, kp, vp, table, ctx, span=1):
     """The library yardstick of paged_attention, gather excluded: SDPA
     over the pool gathered once into a contiguous (B, K, L, r) view with a
-    boolean mask. Returns the call to time."""
+    boolean mask (row g of the verify layout at position ctx + g // G).
+    Returns the call to time."""
     import torch
     import torch.nn.functional as F
     B, maxb = table.shape
@@ -515,8 +580,11 @@ def _sdpa_on_gathered(q, kp, vp, table, ctx):
     tb = table.long().clamp(min=0)
     kc = kp[tb].reshape(B, L, K, r).transpose(1, 2).contiguous()
     vc = vp[tb].reshape(B, L, K, r).transpose(1, 2).contiguous()
-    mask = (torch.arange(L, device="cuda")[None] <= ctx[:, None].long()
-            )[:, None, None, :]
+    rows = q.shape[2]
+    last = ctx[:, None].long() + torch.arange(
+        rows, device="cuda")[None] // (rows // span)          # (B, rows)
+    mask = (torch.arange(L, device="cuda")[None, None] <= last[..., None]
+            )[:, None]                                        # (B,1,rows,L)
     return lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask,
                                                   scale=1.0)
 
@@ -618,12 +686,72 @@ def phase_times():
             rows["paged_attention"] = {"ms": ms, "plain_ms": plain,
                                        "library_ms": lib, "bound_ms": bnd,
                                        "bound_by": by}
+    times_verify(gen)
     from repro_torch.kernels import _build
     for name in _build.KERNELS:
         for fn, regs, st, ld in ptxas_report(name):
             say(f"  ptxas {name}: {fn}: {regs} registers, spill stores "
                 f"{st} B, spill loads {ld} B")
     return rows
+
+
+def times_verify(gen):
+    """Phase 4's lines of the speculative verify shapes: paged_attention
+    at q_span k + 1 (G' = 20) on workload B's ragged contexts, r 128 and
+    64, against its bound and SDPA on a pre-gathered pool; cur_matmul at
+    M 40 for wq / wk / w_gate against the torch.matmul chain."""
+    import torch
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.kernels.cur_matmul.ref import cur_matmul_ref
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    B, K, G, bs, maxb = PAGED_SHAPE
+    span = SPEC_K + 1
+    for r in (128, KV_RANK):
+        q, kp, vp, table, ctx = _paged_inputs(gen, r, RAGGED_CTX, span=span)
+        ms = median_ms(lambda: pa.paged_attention(q, kp, vp, table, ctx,
+                                                  q_span=span))
+        plain = median_ms(lambda: paged_attention_ref(q, kp, vp, table, ctx,
+                                                      q_span=span))
+        lib = median_ms(_sdpa_on_gathered(q, kp, vp, table, ctx, span))
+        live = (sum(RAGGED_CTX) + B * span) * K     # (slot, head, t) read
+        nbytes = 2 * (2 * live * r + 2 * B * K * span * G * r)
+        # row s of a slot attends ctx + s + 1 positions
+        flops = 4 * r * K * G * sum(c + s + 1 for c in RAGGED_CTX
+                                    for s in range(span))
+        bnd, by = bound_ms(nbytes, flops)
+        p = pa.plan(B, K, span * G, r, bs, maxb, torch.bfloat16,
+                    sms=pa._sm_count(torch.cuda.current_device()))
+        say(f"  paged_attention verify q_span={span} B={B} K={K} "
+            f"G'={span * G} r={r} bs={bs} maxb={maxb} ctx="
+            f"{min(RAGGED_CTX)}-{max(RAGGED_CTX)} ({p.body}, {p.splits} "
+            f"splits of {p.entries_per_split} entries): kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, library (SDPA, gather excluded) "
+            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}); "
+            f"{nbytes / ms / 1e6:.1f} GB/s")
+        say(f"    host {host_ms(lambda: pa.paged_attention(q, kp, vp, table, ctx, q_span=span)):.4f}"
+            f" ms per call (launches only)")
+    tot = {"ms": 0.0, "lib": 0.0, "bound": 0.0}
+    for name, (m, r, n) in CUR_SHAPES.items():
+        M = VERIFY_M
+        x = _randn(gen, (M, m), torch.bfloat16)
+        cu = _randn(gen, (m, r), torch.bfloat16, m ** -0.5)
+        rr = _randn(gen, (r, n), torch.bfloat16, r ** -0.5)
+        ms = median_ms(lambda: cm.cur_matmul(x, cu, rr))
+        plain = median_ms(lambda: cur_matmul_ref(x, cu, rr))
+        lib = median_ms(lambda: torch.matmul(torch.matmul(x, cu), rr))
+        nbytes = 2 * (M * m + m * r + r * n + M * n)
+        bnd, by = bound_ms(nbytes, 2 * M * r * (m + n))
+        say(f"  cur_matmul verify {name} M={M} m={m} r={r} n={n} "
+            f"({cm.plan(M, m, r, n, torch.bfloat16).body}): kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s")
+        tot["ms"] += ms
+        tot["lib"] += lib
+        tot["bound"] += bnd
+    say(f"  cur_matmul verify wq + wk + w_gate M={VERIFY_M}: kernel "
+        f"{tot['ms']:.4f} ms, library {tot['lib']:.4f} ms, bound "
+        f"{tot['bound']:.4f} ms")
 
 
 def _total(times):
@@ -688,10 +816,11 @@ def phase_small():
         0, cfg.vocab_size, (2, 64))
     cpu_params = tree_map(lambda t: t.cpu(), cparams)
     max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
+    served = {}
     for cur_kv in (False, True):
         pc = PagedConfig.sized_for(max_len, 4, block_size=16, cur_kv=cur_kv,
                                    kv_rank=cfg.resolved_head_dim // 2)
-        outs = {}
+        outs = served[cur_kv] = {}
         for dev, prm in (("cuda", cparams), ("cpu", cpu_params)):
             srv = Server(prm, ccfg_model, pc, max_concurrency=4,
                          calib_tokens=calib_toks, device=dev)
@@ -710,6 +839,101 @@ def phase_small():
             f"launches {dpaged} = {steps} decode steps x {cfg.n_layers}")
         if not (same and dpaged == steps * cfg.n_layers):
             raise SystemExit("small-model serving check failed")
+    small_spec(params, cfg, wl, calib_toks)
+    small_chaos(cparams, ccfg_model, wl, calib_toks, served[False]["cuda"])
+
+
+def _serve_all(srv, wl, chaos=None):
+    """Submit every request of ``wl`` at once and drain ``srv`` (then let
+    ``chaos`` release what it holds and drain again). Returns {rid:
+    tokens}. With every request in the queue from the start, the run's
+    steps do not depend on the host's clock."""
+    for w in wl:
+        srv.submit(w["prompt"], w["max_new_tokens"])
+    srv.drain()
+    if chaos is not None:
+        chaos.finish(srv)
+        srv.drain()
+    return {k: r.out_tokens for k, r in srv.finished.items()}
+
+
+def small_spec(params, cfg, wl, calib_toks):
+    """Phase 5's speculative serving: the original (single-group) f32
+    model, draft self and the 1-layer early exit, k 3, dense and CUR-KV
+    pools. Card spec-on tokens must equal card spec-off and CPU spec-on
+    tokens."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.serving import PagedConfig, Server
+    from repro_torch.serving.speculative import early_exit_draft
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
+    bad = []
+    for cur_kv in (False, True):
+        pc = PagedConfig.sized_for(max_len, 4, block_size=16, cur_kv=cur_kv,
+                                   kv_rank=cfg.resolved_head_dim // 2)
+        pool = (f"CUR-KV r={pc.rank(cfg.resolved_head_dim)}" if cur_kv
+                else "dense")
+        off = _serve_all(Server(params, cfg, pc, max_concurrency=4,
+                                calib_tokens=calib_toks, device="cuda"), wl)
+        for dname in ("self", "self:1"):
+            toks = {}
+            for dev, prm in (("cuda", params), ("cpu", cpu_params)):
+                d, dcfg = ((prm, None) if dname == "self"
+                           else early_exit_draft(prm, cfg, 1))
+                srv = Server(prm, cfg, pc, max_concurrency=4,
+                             calib_tokens=calib_toks, draft_params=d,
+                             draft_cfg=dcfg, spec_k=3, device=dev)
+                p0 = pa.launches
+                toks[dev] = _serve_all(srv, wl)
+                if dev == "cuda":
+                    st, dpaged = srv.stats(), pa.launches - p0
+                    drained = srv.scheduler.alloc.n_free == pc.n_blocks
+            same = toks["cuda"] == off == toks["cpu"]
+            say(f"  speculative k=3 draft {dname}, {pool} pool: card "
+                f"spec-on, card spec-off and CPU spec-on greedy tokens "
+                f"{'identical' if same else 'DIFFER'}; accept rate "
+                f"{st['spec_accept_rate']:.3f} over "
+                f"{st['n_spec_windows']} windows "
+                f"({st['n_spec_fallbacks']} fallbacks); paged_attention "
+                f"launches {dpaged}")
+            if not (same and drained and st["n_spec_windows"] > 0
+                    and dpaged > 0):
+                bad.append(f"{dname} {pool}")
+    if bad:
+        raise SystemExit(f"small-model speculative checks failed: {bad}")
+
+
+def small_chaos(params, cfg, wl, calib_toks, clean):
+    """Phase 5's chaos: CHAOS_PLAN on the CURed f32 model (dense pool) on
+    the card and on the CPU. Both must give ``clean`` (the chaos-free card
+    tokens) and the same fault events, and return every block."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.serving import PagedConfig, Server
+    from repro_torch.testing import ChaosEngine, FaultPlan
+    max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
+    pc = PagedConfig.sized_for(max_len, 4, block_size=16)
+    events, toks, ok = {}, {}, True
+    for dev, prm in (("cuda", params),
+                     ("cpu", tree_map(lambda t: t.cpu(), params))):
+        ch = ChaosEngine(FaultPlan.from_json(CHAOS_PLAN))
+        srv = Server(prm, cfg, pc, max_concurrency=4,
+                     calib_tokens=calib_toks, chaos=ch, device=dev)
+        toks[dev] = _serve_all(srv, wl, ch)
+        events[dev] = ch.event_log()
+        ok = ok and srv.scheduler.alloc.n_free == pc.n_blocks
+        if dev == "cuda":
+            faults = srv.stats()["step_faults"]
+    kinds = sorted({e["kind"] for e in events["cuda"]})
+    same = toks["cuda"] == clean == toks["cpu"]
+    same_ev = events["cuda"] == events["cpu"]
+    say(f"  chaos plan (seed {CHAOS_PLAN['seed']}): {len(events['cuda'])} "
+        f"fault events {kinds}, {faults} step faults; tokens "
+        f"{'identical to' if same else 'DIFFER from'} the chaos-free run "
+        f"(card and CPU); events card == CPU {same_ev}; pool drained {ok}")
+    if not (same and same_ev and ok and set(kinds) == {
+            "latency_spike", "pool_squeeze", "transient_error"}):
+        raise SystemExit("small-model chaos check failed")
 
 
 def phase_main():
@@ -810,22 +1034,36 @@ def phase_main():
              "flash_attention": main_flash + fold_flash}, run)
 
 
-def phase_serve(run):
-    """The CURed model of the last cure() run served on the card."""
+def _prefill_logits(params, cfg, pc, cache, prompt):
+    """Last-position logits (V,) of ``prompt`` through the Server's own
+    prefill path (runtime.paged_prefill, slot 0 of 8, pow-2 bucket) into
+    ``cache``."""
     import numpy as np
     import torch
-    from repro_torch.kernels.cur_matmul import cur_matmul as cm
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.paged_attention import paged_attention as pa
-    from repro_torch.launch.serve import make_workload, run_continuous
-    from repro_torch.models import forward
+    from repro_torch.serving import runtime
+    B, S = 8, 16
+    while S < len(prompt):
+        S *= 2
+    toks = np.zeros((B, S), np.int64)
+    toks[0, :len(prompt)] = prompt
+    lengths = np.zeros((B,), np.int64)
+    lengths[0] = len(prompt)
+    table = np.full((B, pc.max_blocks_per_seq), -1, np.int32)
+    nblk = pc.blocks_for(len(prompt) + 1)
+    table[0, :nblk] = np.arange(nblk)
+    logits, _ = runtime.paged_prefill(
+        params, cfg, pc, torch.from_numpy(toks), torch.from_numpy(lengths),
+        cache, torch.from_numpy(table))
+    return logits[0]
+
+
+def _workloads(V):
+    """Phase 7's workloads. A: the serve CLI's make_workload (prompts
+    8-40, budgets 4-32, arrivals 20 ms apart); B: a loadgen burst of 16,
+    prompts 256 / 512 / 1024, 64 new tokens each."""
+    from repro_torch.launch.serve import make_workload
     from repro_torch.obs import loadgen
-    from repro_torch.serving import PagedConfig, Server, runtime
-    from repro_torch.serving import paged_cache as pcache
-    say("== phase 7: serve, llama3.1-8b at full width (CURed, bf16)")
-    params, cfg = run.cured_params, run.cured_cfg
-    V = cfg.vocab_size
-    workloads = {
+    return {
         "A": make_workload(16, V, max_new=32),
         "B": loadgen.generate(loadgen.WorkloadSpec(
             n_requests=16, arrival="burst",
@@ -834,8 +1072,25 @@ def phase_serve(run):
             gen=loadgen.LengthDist(kind="fixed", mean=64, hi=64),
             vocab_size=V, seed=0)),
     }
+
+
+def phase_serve(run):
+    """The CURed model of the last cure() run served on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.models import forward
+    from repro_torch.serving import PagedConfig, Server, runtime
+    from repro_torch.serving import paged_cache as pcache
+    say("== phase 7: serve, llama3.1-8b at full width (CURed, bf16)")
+    params, cfg = run.cured_params, run.cured_cfg
+    workloads = _workloads(cfg.vocab_size)
     launches = {"cur_matmul": 0, "flash_attention": 0, "paged_attention": 0}
     bad = []
+    base = {}                       # spec-off tokens by (workload, cur_kv)
     for wname, wl in workloads.items():
         max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
         for cur_kv in (False, True):
@@ -846,6 +1101,8 @@ def phase_serve(run):
             cm.launches = fa.launches = pa.launches = 0
             finished, st = run_continuous(srv, wl, verbose=False)
             torch.cuda.synchronize()
+            base[wname, cur_kv] = {k: r.out_tokens
+                                   for k, r in finished.items()}
             n = {"cur_matmul": cm.launches, "flash_attention": fa.launches,
                  "paged_attention": pa.launches}
             for k in launches:
@@ -883,24 +1140,10 @@ def phase_serve(run):
                 # prefill logits of request 0 against the folded forward
                 prompt = wl[0]["prompt"]
                 cache = pcache.init_paged_cache(cfg, pc, "cuda")
-                B = 8
-                S = 16
-                while S < len(prompt):
-                    S *= 2
-                toks = np.zeros((B, S), np.int64)
-                toks[0, :len(prompt)] = prompt
-                lengths = np.zeros((B,), np.int64)
-                lengths[0] = len(prompt)
-                table = np.full((B, pc.max_blocks_per_seq), -1, np.int32)
-                nblk = pc.blocks_for(len(prompt) + 1)
-                table[0, :nblk] = np.arange(nblk)
-                logits, _ = runtime.paged_prefill(
-                    params, cfg, pc, torch.from_numpy(toks),
-                    torch.from_numpy(lengths), cache,
-                    torch.from_numpy(table))
+                logits = _prefill_logits(params, cfg, pc, cache, prompt)
                 ref = forward(params, cfg, {"tokens": torch.tensor(
                     [prompt], device="cuda")})[0, -1]
-                rel = rel_err(logits[0], ref)
+                rel = rel_err(logits, ref)
                 say(f"  {label}: request 0 prefill logits vs folded "
                     f"forward() rel {rel:.3e} (tol {BF16_TOL:g})")
                 checks["prefill logits match forward()"] = rel < BF16_TOL
@@ -912,7 +1155,225 @@ def phase_serve(run):
             torch.cuda.empty_cache()
     if bad:
         raise SystemExit(f"serve checks failed: {bad}")
+    for k, v in serve_spec(run, workloads, base).items():
+        launches[k] += v
+    for k, v in serve_chaos(params, cfg, workloads["A"]).items():
+        launches[k] += v
     profile_decode(params, cfg, workloads["B"])
+    return launches
+
+
+def _drive_sampled(srv, wl, temperature, top_p):
+    """loadgen.drive with top-p: submit each request at its arrival offset
+    (SamplingParams(temperature, top_p, seed = its index)) and step until
+    everything drains."""
+    from repro_torch.serving import SamplingParams
+    t0, i = time.perf_counter(), 0
+    while i < len(wl) or not srv.idle:
+        now = time.perf_counter()
+        while i < len(wl) and t0 + wl[i]["arrival_offset_s"] <= now:
+            srv.submit(wl[i]["prompt"], wl[i]["max_new_tokens"],
+                       sampling=SamplingParams(temperature=temperature,
+                                               top_p=top_p, seed=i),
+                       arrival=t0 + wl[i]["arrival_offset_s"])
+            i += 1
+        if not srv.step() and i < len(wl):
+            time.sleep(max(0.0, t0 + wl[i]["arrival_offset_s"]
+                           - time.perf_counter()))
+    return srv.finished, srv.stats()
+
+
+def _agreement(target, cfg, pc, wl, spec, off):
+    """Token agreement of a speculative run with its spec-off run: matching
+    positions over all tokens, identical requests, and at the first
+    diverging request the position and the target's logits there (prompt
+    + the common prefix through a fresh Server's prefill path, its pool
+    calibrated as the runs' were): the top-2 margin and the gap between
+    the two runs' tokens."""
+    import torch
+    from repro_torch.serving import Server
+    same_pos = sum(sum(a == b for a, b in zip(spec[i], off[i])) for i in off)
+    total = sum(len(off[i]) for i in off)
+    same_req = sum(spec[i] == off[i] for i in off)
+    text = (f"agreement with spec-off {same_pos}/{total} tokens, "
+            f"{same_req}/{len(off)} requests identical")
+    for i in sorted(off):
+        if spec[i] != off[i]:
+            p = next(j for j, (a, b) in enumerate(zip(spec[i], off[i]))
+                     if a != b)
+            srv = Server(target, cfg, pc, max_concurrency=8, device="cuda")
+            lg = _prefill_logits(target, cfg, pc, srv.cache,
+                                 wl[i]["prompt"] + off[i][:p]).float()
+            del srv
+            top = torch.topk(lg, 2)
+            text += (f"; first divergence request {i} token {p}: spec "
+                     f"{spec[i][p]} vs off {off[i][p]}; prefill-path logits "
+                     f"there: top-2 margin "
+                     f"{float(top.values[0] - top.values[1]):.4f} (tokens "
+                     f"{top.indices.tolist()}), spec minus off "
+                     f"{float(lg[spec[i][p]] - lg[off[i][p]]):.4f}")
+            break
+    return text
+
+
+def serve_spec(run, workloads, base):
+    """Speculative serving at full width, spec_k 4, max_concurrency 8,
+    block 16: (a) the original model drafted by the CURed one (the
+    in-memory form of the --emit-draft companion), workload B, dense pool,
+    greedy, with the same target's spec-off run; (b) the CURed model
+    drafted by itself, workload B, CUR-KV pool r 64, greedy; (c) (a) on
+    workload A at temperature 0.8, top-p 0.95. Returns the kernels'
+    launches over the runs."""
+    import torch
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serving import PagedConfig, Server
+    from repro_torch.serving import speculative
+    launches = {"cur_matmul": 0, "flash_attention": 0, "paged_attention": 0}
+    bad = []
+    drawing = [0.0]           # host seconds in the window draws, run (c)
+    draw = speculative.window_uniforms
+
+    def timed_draw(*a, **kw):
+        t0 = time.perf_counter()
+        out = draw(*a, **kw)
+        drawing[0] += time.perf_counter() - t0
+        return out
+
+    def pool(wl, cur_kv):
+        max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
+        return PagedConfig.sized_for(max_len, 8, block_size=16,
+                                     cur_kv=cur_kv, kv_rank=KV_RANK)
+
+    # the original model's spec-off tokens on workload B, for (a)
+    wl_b = workloads["B"]
+    srv = Server(run.params, run.cfg, pool(wl_b, False), max_concurrency=8,
+                 device="cuda")
+    cm.launches = fa.launches = pa.launches = 0
+    finished, st = run_continuous(srv, wl_b, verbose=False)
+    torch.cuda.synchronize()
+    for k, v in (("cur_matmul", cm.launches), ("flash_attention",
+                 fa.launches), ("paged_attention", pa.launches)):
+        launches[k] += v
+    off_a = {k: r.out_tokens for k, r in finished.items()}
+    say(f"  B dense, original model, spec off: {st['tokens_generated']} "
+        f"tokens, {st['tokens_per_s']:.1f} tok/s; TPOT p50 "
+        f"{st['tpot_p50_s'] * 1e3:.2f} p99 {st['tpot_p99_s'] * 1e3:.2f} ms")
+    del srv
+    torch.cuda.empty_cache()
+
+    runs = [
+        ("(a) B dense, original model, draft = CURed model", run.params,
+         run.cfg, run.cured_params, run.cured_cfg, "B", False, None, off_a),
+        ("(b) B CUR-KV r=64, CURed model, draft self", run.cured_params,
+         run.cured_cfg, run.cured_params, None, "B", True, None,
+         base["B", True]),
+        ("(c) A dense, original model, draft = CURed model, T 0.8 "
+         "top-p 0.95", run.params, run.cfg, run.cured_params,
+         run.cured_cfg, "A", False, (0.8, 0.95), None),
+    ]
+    for label, tgt, tcfg, drf, dcfg, wname, cur_kv, smp, off in runs:
+        wl = workloads[wname]
+        pc = pool(wl, cur_kv)
+        srv = Server(tgt, tcfg, pc, max_concurrency=8, draft_params=drf,
+                     draft_cfg=dcfg, spec_k=SPEC_K, device="cuda")
+        torch.cuda.synchronize()
+        cm.launches = fa.launches = pa.launches = 0
+        if smp is None:
+            finished, st = run_continuous(srv, wl, verbose=False)
+        else:
+            speculative.window_uniforms = timed_draw
+            try:
+                finished, st = _drive_sampled(srv, wl, *smp)
+            finally:
+                speculative.window_uniforms = draw
+        torch.cuda.synchronize()
+        n = {"cur_matmul": cm.launches, "flash_attention": fa.launches,
+             "paged_attention": pa.launches}
+        for k in launches:
+            launches[k] += n[k]
+        toks = {k: r.out_tokens for k, r in finished.items()}
+        agree = (_agreement(tgt, tcfg, pc, wl, toks, off) if off is not None
+                 else "agreement with spec-off: not compared (sampled)")
+        say(f"  {label}: {len(wl)} requests, {st['tokens_generated']} "
+            f"tokens, {st['tokens_per_s']:.1f} tok/s (busy "
+            f"{st['tokens_per_s_busy']:.1f}); TTFT p50 "
+            f"{st['ttft_p50_s'] * 1e3:.1f} p99 {st['ttft_p99_s'] * 1e3:.1f} "
+            f"ms; TPOT p50 {st['tpot_p50_s'] * 1e3:.2f} p99 "
+            f"{st['tpot_p99_s'] * 1e3:.2f} ms; accept rate "
+            f"{st['spec_accept_rate']:.4f} over {st['n_spec_windows']} "
+            f"windows ({st['n_spec_fallbacks']} fallbacks); draft "
+            f"{st['spec_draft_time_s']:.3f} s verify "
+            f"{st['spec_verify_time_s']:.3f} s (device, CUDA events); "
+            f"launches {json.dumps(n)}")
+        say(f"    {agree}")
+        if smp is not None:
+            say(f"    host time drawing the windows' uniforms (one seeded "
+                f"generator per draw): {drawing[0]:.4f} s of "
+                f"{st['decode_time_s']:.3f} s in decode steps "
+                f"({drawing[0] / st['decode_time_s']:.4f})")
+        alloc = srv.scheduler.alloc
+        checks = {
+            "every request finished by length": len(finished) == len(wl)
+            and all(r.finish_reason == "length" for r in finished.values()),
+            "allocator back to 0 used blocks": alloc.used == 0
+            and alloc.n_free == pc.n_blocks,
+            "speculative windows ran": st["n_spec_windows"] > 0,
+            "paged_attention launches >= windows x layers x 2":
+                n["paged_attention"]
+                >= st["n_spec_windows"] * tcfg.n_layers * 2,
+        }
+        bad += [f"{label}: {k}" for k, ok in checks.items() if not ok]
+        del srv
+        torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit(f"speculative serve checks failed: {bad}")
+    return launches
+
+
+def serve_chaos(params, cfg, wl):
+    """CHAOS_PLAN_7 on workload A (all requests queued at once) served by
+    the CURed model, run twice from the same plan: the same fault events
+    both times, every original request finished, the pool drained."""
+    import torch
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.serving import PagedConfig, Server
+    from repro_torch.testing import ChaosEngine, FaultPlan
+    max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
+    pc = PagedConfig.sized_for(max_len, 8, block_size=16)
+    launches = {"cur_matmul": 0, "flash_attention": 0, "paged_attention": 0}
+    runs = []
+    for _ in range(2):
+        ch = ChaosEngine(FaultPlan.from_json(CHAOS_PLAN_7))
+        srv = Server(params, cfg, pc, max_concurrency=8, chaos=ch,
+                     device="cuda")
+        cm.launches = fa.launches = pa.launches = 0
+        toks = _serve_all(srv, wl, ch)
+        torch.cuda.synchronize()
+        for k, v in (("cur_matmul", cm.launches), ("flash_attention",
+                     fa.launches), ("paged_attention", pa.launches)):
+            launches[k] += v
+        done = all(srv.finished[i].finish_reason == "length"
+                   for i in range(len(wl)))
+        runs.append((ch.event_log(), toks, done,
+                     srv.scheduler.alloc.used == 0, srv.stats()))
+        del srv
+        torch.cuda.empty_cache()
+    (ev1, t1, done1, drained1, st), (ev2, t2, done2, drained2, _) = runs
+    kinds = sorted({e["kind"] for e in ev1})
+    say(f"  chaos A (seed {CHAOS_PLAN_7['seed']}), twice: "
+        f"{len(ev1)} / {len(ev2)} fault events {kinds}, "
+        f"{st['step_faults']} step faults, {len(t1)} requests "
+        f"(storm included); events identical {ev1 == ev2}; tokens "
+        f"identical {t1 == t2}; every original request finished "
+        f"{done1 and done2}; pool drained {drained1 and drained2}")
+    if not (ev1 == ev2 and ev1 and done1 and done2 and drained1
+            and drained2):
+        raise SystemExit("chaos serve checks failed")
     return launches
 
 
@@ -965,6 +1426,24 @@ def phase_split(run):
         say(f"  paged_attention B={B} K={K} G={G} r={r} bs={bs} {span}: "
             f"{_total(dev)}; SDPA (gather excluded) {_total(lib)} (mean of "
             f"25 calls)")
+    span = SPEC_K + 1
+    for r in (128, KV_RANK):
+        args = _paged_inputs(gen, r, RAGGED_CTX, span=span)
+        dev = kernel_ms(lambda: pa.paged_attention(*args, q_span=span))
+        lib = kernel_ms(_sdpa_on_gathered(*args, span))
+        say(f"  paged_attention verify q_span={span} G'={span * G} r={r} "
+            f"ctx={min(RAGGED_CTX)}-{max(RAGGED_CTX)}: {_total(dev)}; SDPA "
+            f"(gather excluded) {_total(lib)} (mean of 25 calls)")
+    for name, (m, r, n) in CUR_SHAPES.items():
+        x = _randn(gen, (VERIFY_M, m), bf16)
+        cu = _randn(gen, (m, r), bf16, m ** -0.5)
+        rr = _randn(gen, (r, n), bf16, r ** -0.5)
+        parts = kernel_ms(lambda: cm.cur_matmul(x, cu, rr))
+        lib = kernel_ms(lambda: torch.matmul(torch.matmul(x, cu), rr))
+        say(f"  cur_matmul verify {name} M={VERIFY_M}: " + ", ".join(
+            f"{_pass_name(k)} {v:.4f} ms" for k, v in parts.items())
+            + f" (sum {_total(parts)}); torch.matmul chain {_total(lib)} "
+            f"(mean of 25 calls)")
     ds = SyntheticLM(DataConfig(run.cfg.vocab_size, 512, 4, seed=1), "cuda")
     evl = [ds.batch_at(1000 + i) for i in range(2)]
     perplexity(run.cured_params, run.cured_cfg, evl)
@@ -984,6 +1463,110 @@ def phase_split(run):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         say(f"    {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d} x {e.key[:90]}")
+    profile_spec_window(run)
+
+
+def _kernel_rows(prof):
+    """The profiler's device kernels (the aten ops above them carry the
+    same device time)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def profile_spec_window(run):
+    """One speculative window of phase 7's run (a) (original model, CURed
+    draft, spec_k 4, 8 slots of workload B, dense pool) by part: the draft
+    (k + 1 decode steps of the draft model) and the verify (one target
+    forward over 5 positions) each under its own torch.profiler window, so
+    that each part's device time, and paged_attention's at q_span 1 and
+    q_span 5, read apart. Then one more window, untraced, under
+    torch.cuda's sync debug mode: the number of host syncs in a window."""
+    import traceback
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import PagedConfig, Server
+    from repro_torch.serving import speculative
+    reqs = _workloads(run.cfg.vocab_size)["B"][:8]
+    max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in reqs)
+    pc = PagedConfig.sized_for(max_len, 8, block_size=16)
+    srv = Server(run.params, run.cfg, pc, max_concurrency=8,
+                 draft_params=run.cured_params, draft_cfg=run.cured_cfg,
+                 spec_k=SPEC_K, device="cuda")
+    for w in reqs:
+        srv.submit(w["prompt"], w["max_new_tokens"])
+    srv.step()                                  # the prefill of all 8
+    srv.step()                                  # a window, untraced
+    torch.cuda.synchronize()
+    parts = {}
+    real = {"draft": speculative.draft_tokens,
+            "verify": speculative.verify_tokens}
+
+    def traced(name):
+        def fn(*a, **kw):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = real[name](*a, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            parts[name] = (_kernel_rows(prof), wall)
+            return out
+        return fn
+
+    speculative.draft_tokens = traced("draft")
+    speculative.verify_tokens = traced("verify")
+    try:
+        ctx = srv.scheduler.ctx_lens()
+        srv.step()
+    finally:
+        speculative.draft_tokens = real["draft"]
+        speculative.verify_tokens = real["verify"]
+    for name in ("draft", "verify"):
+        rows, wall = parts[name]
+        busy = sum(e.self_device_time_total for e in rows) / 1e3
+        paged = [e for e in rows if "paged" in e.key]
+        p_ms = sum(e.self_device_time_total for e in paged) / 1e3
+        p_n = sum(e.count for e in paged)
+        say(f"  spec window (a), 8 slots at ctx {int(ctx.min())}-"
+            f"{int(ctx.max())}, {name}: wall {wall * 1e3:.1f} ms (traced), "
+            f"kernels busy {busy:.3f} ms, device idle share "
+            f"{1 - busy / 1e3 / wall:.3f}; paged_attention "
+            f"{'q_span 1' if name == 'draft' else f'q_span {SPEC_K + 1}'}"
+            f" {p_n} launches, {p_ms:.3f} ms "
+            f"({1e3 * p_ms / max(p_n, 1):.2f} us per launch)")
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:5]:
+            say(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                f"{e.count:6d} x {e.key[:80]}")
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    syncs = []
+
+    def where(message, category, filename, lineno, file=None, line=None):
+        # the innermost frames of this repository at the synchronizing op
+        if "synchroniz" in str(message):
+            syncs.append(" < ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno}"
+                for f in reversed(traceback.extract_stack()[:-1])
+                if "repro_torch" in f.filename)[:120])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = where
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            srv.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    say(f"  spec window (a), untraced: {len(syncs)} host syncs "
+        f"(torch.cuda sync debug mode):")
+    for site in sorted(set(syncs)):
+        say(f"    {syncs.count(site)} x {site}")
+    del srv
+    torch.cuda.empty_cache()
 
 
 def profile_decode(params, cfg, wl):

@@ -10,13 +10,24 @@ arrivals, per-request generation budgets -- through
 attention runs the ``paged_attention`` kernel and prefill the
 ``flash_attention`` and ``cur_matmul`` kernels.
 
+Speculative decoding with a self-draft (the draft pool is new, the
+weights are the target's):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.1-8b \
+      --smoke --draft self:2 --spec-k 3 --device cpu
+
+``--chaos PLAN.json`` injects a seeded ``repro_torch.testing.FaultPlan``
+and writes the fault event log to ``--obs-out/chaos_events.jsonl``.
+
 Not ported yet (they raise): the static-batch engine (``--legacy``, and
-non-attention archs), speculative decoding (``--draft``), fault injection
-(``--chaos``) and profiler capture (``--prof``). ``--paged-kernel`` and
-``--prefill-backend`` set environment switches the port does not have:
-the kernels run for CUDA tensors, and CUR-KV prefill is rank-space.
+non-attention archs), a draft checkpoint directory (``--draft DIR``, which
+needs the checkpoint manager) and profiler capture (``--prof``).
+``--paged-kernel`` and ``--prefill-backend`` set environment switches the
+port does not have: the kernels run for CUDA tensors, and CUR-KV prefill is
+rank-space.
 """
 import argparse
+import dataclasses
 import math
 import os
 
@@ -31,6 +42,8 @@ from repro_torch.models import init_params
 from repro_torch.obs import loadgen, slo as slo_mod
 from repro_torch.serving import PagedConfig, ResilienceConfig, Server
 from repro_torch.serving.paged_cache import supports as paged_supports
+from repro_torch.serving.speculative import early_exit_draft
+from repro_torch.testing import ChaosEngine, FaultPlan
 
 
 def make_workload(n_requests: int, vocab: int, *, max_new: int = 16,
@@ -78,9 +91,13 @@ def run_continuous(server: Server, workload, *, temperature: float = 0.0,
 
 
 def _not_ported(args) -> None:
+    if args.draft and not (args.draft == "self"
+                           or args.draft.startswith("self:")):
+        raise NotImplementedError(
+            "--draft DIR (a draft checkpoint) is not yet ported to "
+            "repro_torch: it needs the checkpoint manager, ROADMAP Queue 1 "
+            "item 8a; use --draft self or self:N")
     later = [("--legacy (static-batch engine)", args.legacy),
-             ("--draft (speculative decoding)", args.draft),
-             ("--chaos (fault injection)", args.chaos),
              ("--prof (profiler capture)", args.prof),
              ("--paged-kernel (no environment switch in the port)",
               args.paged_kernel),
@@ -117,10 +134,16 @@ def parser() -> argparse.ArgumentParser:
                     choices=["auto", "fold", "reconstruct"],
                     help="not yet ported")
     ap.add_argument("--legacy", action="store_true", help="not yet ported")
-    ap.add_argument("--draft", default=None, help="not yet ported")
-    ap.add_argument("--spec-k", type=int, default=4, help="not yet ported")
+    ap.add_argument("--draft", default=None,
+                    help="speculative decoding: 'self' to self-draft with "
+                         "the target weights, or 'self:N' for an early-exit "
+                         "draft from the target's first N layers (a draft "
+                         "checkpoint dir is not yet ported)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens per speculative window")
     ap.add_argument("--draft-kv-rank", type=int, default=0,
-                    help="not yet ported")
+                    help="CUR-KV rank for the DRAFT's paged pool "
+                         "(0: same pool config as the target)")
     # load generation (repro_torch.obs.loadgen) + SLO evaluation
     ap.add_argument("--arrival", default="staggered",
                     choices=["staggered", "burst", "poisson", "gamma",
@@ -155,7 +178,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--watchdog-s", type=float, default=0.0,
                     help="wall-clock bound per engine step (0: off)")
     ap.add_argument("--chaos", default=None, metavar="PLAN.json",
-                    help="not yet ported")
+                    help="inject a seeded FaultPlan (repro_torch.testing."
+                         "chaos JSON spec) into the serve run; the fault "
+                         "event log is written to "
+                         "--obs-out/chaos_events.jsonl")
     # observability (repro_torch.obs)
     ap.add_argument("--obs", action="store_true",
                     help="route serving metrics through the process-wide "
@@ -231,26 +257,54 @@ def main(argv=None):
     pc = PagedConfig.sized_for(
         max_len, args.max_concurrency, block_size=args.block_size,
         cur_kv=args.cur_kv, kv_rank=kv_rank)
+    draft_params, draft_cfg, draft_pc = None, None, None
+    if args.draft == "self":
+        draft_params = params
+    elif args.draft:
+        n = int(args.draft.split(":", 1)[1])
+        draft_params, draft_cfg = early_exit_draft(params, cfg, n)
+        print(f"early-exit self-draft: first {draft_cfg.n_layers} of "
+              f"{cfg.n_layers} layers")
+    if draft_params is not None and args.draft_kv_rank:
+        draft_pc = dataclasses.replace(pc, cur_kv=True,
+                                       kv_rank=args.draft_kv_rank)
     res = ResilienceConfig(
         max_queue=args.max_queue, overload_policy=args.overload_policy,
         ttft_deadline_s=args.ttft_deadline_ms / 1e3,
         deadline_s=args.deadline_ms / 1e3, watchdog_s=args.watchdog_s)
+    chaos = None
+    if args.chaos:
+        chaos = ChaosEngine(FaultPlan.load(args.chaos))
+        print(f"chaos: {len(chaos.plan.faults)} fault streams "
+              f"(seed {chaos.plan.seed}) from {args.chaos}")
     server = Server(params, cfg, pc, max_concurrency=args.max_concurrency,
+                    draft_params=draft_params, draft_cfg=draft_cfg,
+                    draft_pc=draft_pc,
+                    spec_k=args.spec_k if draft_params is not None else 0,
                     obs=obs.default_registry() if args.obs else None,
-                    tracer=tracer, resilience=res, device=device)
+                    tracer=tracer, resilience=res, chaos=chaos,
+                    device=device)
     print(f"serving {len(workload)} requests on {device} "
           f"(concurrency {args.max_concurrency}, block {args.block_size}, "
           f"pool {pc.n_blocks} blocks, cur_kv={args.cur_kv}, "
           f"paged_decode={server.stats()['attn_backends']['paged_decode']}, "
           f"prefill={server._prefill_backend}"
-          + (f", window={server.window}" if server.window else "") + ")")
+          + (f", window={server.window}" if server.window else "")
+          + (f", spec_k={server.spec_k}" if server.spec_k else "") + ")")
     finished, stats = run_continuous(server, workload,
                                      temperature=args.temperature)
+    if chaos is not None:
+        # close any open fault windows (held pool squeezes) and finish
+        # whatever the faults displaced, then refresh the report
+        chaos.finish(server)
+        server.drain()
+        stats = server.stats()
     failed = stats.get("failed", {})
     if any(failed.values()) or stats.get("degradation_transitions"):
         print(f"resilience: failed {failed} | degradation level "
               f"{stats['degradation_level']} "
-              f"({stats['degradation_transitions']} transitions)")
+              f"({stats['degradation_transitions']} transitions) | "
+              f"step faults {stats['step_faults']}")
     print(f"slo: ttft p50 {stats['ttft_p50_s']*1e3:.0f}ms "
           f"p99 {stats['ttft_p99_s']*1e3:.0f}ms | tpot "
           f"p50 {stats['tpot_p50_s']*1e3:.1f}ms "
@@ -274,10 +328,22 @@ def main(argv=None):
         print(f"latency split: queue {dec['queue_wait_frac']:.0%} "
               f"prefill {dec['prefill_frac']:.0%} "
               f"decode {dec['decode_frac']:.0%}")
+    if server.spec_k:
+        print(f"speculative: accept rate "
+              f"{stats['spec_accept_rate']:.3f} over "
+              f"{stats['n_spec_windows']} windows "
+              f"({stats['n_spec_fallbacks']} fallbacks) | draft "
+              f"{stats['spec_draft_time_s']:.2f}s verify "
+              f"{stats['spec_verify_time_s']:.2f}s")
     first = finished[min(finished)]
     print(f"request 0: {len(first.out_tokens)} tokens "
           f"{first.out_tokens[:8]}"
           f"{'...' if len(first.out_tokens) > 8 else ''}")
+    if chaos is not None and chaos.events:
+        os.makedirs(args.obs_out, exist_ok=True)
+        path = chaos.save_events(
+            os.path.join(args.obs_out, "chaos_events.jsonl"))
+        print(f"  chaos events ({len(chaos.events)}) -> {path}")
     if args.obs or args.trace:
         os.makedirs(args.obs_out, exist_ok=True)
         if args.obs:

@@ -436,12 +436,14 @@ def copy_cache_blocks(cache: dict, src: torch.Tensor,
     for name in ("k", "v"):
         pool = cache[name]                     # (L, nb, bs, K, r)
         nb = pool.shape[1]
-        s = src.to(pool.device).long().clamp(0, nb - 1)
-        d = dst.to(pool.device).long()
+        # the kept rows are chosen where src/dst lie (the host, for the
+        # scheduler's lists), so a pool on the card is not synced
+        s = src.long().clamp(0, nb - 1)
+        d = dst.long()
         d = torch.where(d < 0, d + nb, d)
         keep = (d >= 0) & (d < nb)
-        data = pool[:, s[keep]]
-        pool[:, d[keep]] = data
+        data = pool[:, s[keep].to(pool.device, non_blocking=True)]
+        pool[:, d[keep].to(pool.device, non_blocking=True)] = data
     return cache
 
 

@@ -14,8 +14,9 @@ the registry's ``paged_decode`` variant (the CUDA kernel for a pool on
 the card, the gather-based plain version on the CPU); CUR-KV prompt
 attention resolves ``paged_prefill`` (``rank_fold`` by default).
 
-``paged_verify`` (the speculative verify step) comes with the speculative
-slice. The pools are written in place. Block tables, context lengths and masks
+``paged_verify`` is the speculative verify step: one forward over S
+positions per slot, whose rows equal S sequential ``paged_decode`` steps.
+The pools are written in place. Block tables, context lengths and masks
 may be CPU tensors (the scheduler's arrays are host arrays): the write
 rows are then found on the host, and a decode window syncs the device
 once, when its sampled tokens are read.
@@ -156,42 +157,72 @@ def paged_prefill(params, cfg: ModelConfig, pc: pcache.PagedConfig,
 # decode
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def paged_decode(params, cfg: ModelConfig, pc: pcache.PagedConfig,
                  tokens: torch.Tensor, cache: dict, table: torch.Tensor,
                  ctx_len: torch.Tensor, active: torch.Tensor):
-    """One decode step for every active slot, writing the pool in place.
+    """One decode step for every active slot, writing the pool in place:
+    :func:`paged_verify` over one position.
 
     tokens (B, 1) last sampled token per slot; ctx_len (B,) tokens already
     in cache (the new token is written at that position); active (B,)
     bool. Returns (logits (B, V), cache)."""
+    logits, cache = paged_verify(params, cfg, pc, tokens, cache, table,
+                                 ctx_len, active)
+    return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# multi-position verify (speculative decoding)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def paged_verify(params, cfg: ModelConfig, pc: pcache.PagedConfig,
+                 tokens: torch.Tensor, cache: dict, table: torch.Tensor,
+                 ctx_len: torch.Tensor, active: torch.Tensor):
+    """One forward over ``S`` consecutive positions per slot -- the
+    speculative verify step.
+
+    tokens (B, S): token ``j`` is the input at position ``ctx + j`` (j = 0
+    is the slot's pending next token, the rest are draft proposals); it
+    may already lie on the pools' device. Per layer, all S positions' K/V
+    are written to the (forked) pool first, then every query attends
+    through the pool with its own causal mask ``idx <= ctx + j`` (the
+    ``q_span = S`` layout of ``paged_attention``: row ``s * G + g`` of a
+    kv head's ``S * G`` query rows sits at position ``ctx + s``), so row
+    ``j`` equals the ``j``-th of S sequential :func:`paged_decode` calls.
+    Returns (logits (B, S, V), cache); ``logits[:, j]`` is the target
+    distribution of the token after position ``ctx + j``."""
     check_supported(cfg)
     dev = _device_of(cache)
     x = _embed(params, cfg, {"tokens": _to(tokens.long(), dev)})
-    B = x.shape[0]
-    rows = pcache.rows_to(
-        pcache.token_rows(table, ctx_len, active, pc.block_size), dev)
+    B, S, _ = x.shape
+    rows = pcache.rows_to(pcache.span_rows(table, ctx_len, active, S,
+                                           pc.block_size), dev)
     table_d = _to(table.to(torch.int32), dev)
     ctx_d = _to(ctx_len.to(torch.int32), dev)
-    pos = ctx_d[:, None]                                  # (B, 1)
+    pos = ctx_d[:, None] + torch.arange(S, dtype=torch.int32,
+                                        device=dev)[None]
     scale = cfg.resolved_head_dim ** -0.5
+    K = cfg.n_kv_heads
     for li, spec, p in iter_layer_params(params, cfg):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
         h = norm(x, p.get("norm1"), cfg)
-        q, k, v = attn.qkv_project(h, p, cfg, pos)        # (B, 1, ., hd)
+        q, k, v = attn.qkv_project(h, p, cfg, pos)        # (B, S, ., hd)
         qk, uk, qv, uv = _layer_proj(cache, li)
         pool_k = pcache.scatter_rows(
-            cache["k"][li], pcache.compress_kv(k[:, 0], qk), rows)
+            cache["k"][li], pcache.compress_kv(k, qk), rows)
         pool_v = pcache.scatter_rows(
-            cache["v"][li], pcache.compress_kv(v[:, 0], qv), rows)
-        qg = attn._group_q(q, cfg.n_kv_heads)[:, 0]       # (B, K, G, hd)
-        o = _paged_attn(qg, pool_k, pool_v, table_d, ctx_d, uk, uv, scale,
-                        win)
-        x = x + apply_w(o.reshape(B, 1, -1), p["wo"])
+            cache["v"][li], pcache.compress_kv(v, qv), rows)
+        qg = attn._group_q(q, K)                          # (B, S, K, G, hd)
+        G = qg.shape[3]
+        qflat = qg.permute(0, 2, 1, 3, 4).reshape(B, K, S * G, -1)
+        o = _paged_attn(qflat, pool_k, pool_v, table_d, ctx_d, uk, uv,
+                        scale, win, q_span=S)
+        o = o.reshape(B, K, S, G, -1).permute(0, 2, 1, 3, 4)
+        x = x + apply_w(o.reshape(B, S, -1), p["wo"])
         x = _channel_mix(x, p, spec, cfg)
     x = norm(x, params.get("final_norm"), cfg)
-    logits = _unembed(params, cfg, x)[:, 0, :]
-    return logits, cache
+    return _unembed(params, cfg, x), cache                # (B, S, V)
 
 
 # ---------------------------------------------------------------------------

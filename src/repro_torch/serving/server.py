@@ -7,12 +7,18 @@ requests or a decode window over all running slots, both at a fixed
 ``max_concurrency`` batch. Reports TTFT, TPOT, tokens/s and queue-depth
 statistics from its own metrics registry.
 
+With a draft model and ``spec_k > 0`` a decode step runs a speculative
+window (draft k tokens, verify them in one target forward, commit the
+accepted prefix over forked blocks); with a ``ChaosEngine`` the server
+takes seeded faults at its hooks and retries the step they abort.
+
 PyTorch runs eagerly, so there is no compiled-step cache; the pow-2
 prefill buckets stay, since they keep the flash kernel's sequence lengths
-few. Speculative decoding and fault injection are not ported yet.
+few.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -26,6 +32,7 @@ from repro_torch.obs.trace import (
     ENGINE_TRACK, NULL_TRACER, Tracer, request_track)
 from repro_torch.serving import paged_cache as pcache
 from repro_torch.serving import runtime
+from repro_torch.serving import speculative
 from repro_torch.serving.resilience import (
     FAILURE_REASONS, DegradationLadder, QueueFull, ResilienceConfig,
     ServerWedged, deadline_expired, pressure_signals, ttft_missed)
@@ -33,6 +40,7 @@ from repro_torch.serving.sampling import (
     SamplingParams, greedy_tokens, pack_params, request_generator,
     sample_tokens)
 from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.testing.chaos import InjectedFault
 
 
 def _bucket(n: int, lo: int, hi: int) -> int:
@@ -43,10 +51,22 @@ def _bucket(n: int, lo: int, hi: int) -> int:
     return min(b, hi)
 
 
-def _later(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to repro_torch; it is ported with "
-        f"ROADMAP Queue 1 item {item}")
+def _mark(device: torch.device):
+    """A point in time of ``device``'s work: a CUDA event recorded on the
+    current stream, or on the CPU (where every op has run when it returns)
+    the host clock. Marks time a window's phases without a device sync."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _seconds(a, b) -> float:
+    """Seconds between two marks (CUDA events: once the stream passed b)."""
+    if isinstance(a, float):
+        return b - a
+    return a.elapsed_time(b) / 1e3
 
 
 class Server:
@@ -61,11 +81,6 @@ class Server:
                  tracer: Optional[Tracer] = None,
                  resilience: Optional[ResilienceConfig] = None,
                  chaos=None, device=None):
-        if (draft_params is not None or draft_cfg is not None
-                or draft_pc is not None or spec_k):
-            raise _later("speculative decoding (spec_k > 0, a draft)", 13)
-        if chaos is not None:
-            raise _later("fault injection (chaos=)", 12)
         runtime.check_supported(cfg)
         self.device = resolve_device(device)
         self.params = params
@@ -77,27 +92,58 @@ class Server:
         self.obs = obs if obs is not None else Registry(enabled=True)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         # out-of-window pool blocks are freed as decode advances only when
-        # every attention layer is sliding-window
-        self.window = pcache.serving_window(cfg)
+        # every attention layer is sliding-window -- in the target and,
+        # under speculation, in the draft (they share one block table); both
+        # local -> the larger window wins
+        window = pcache.serving_window(cfg)
+        if draft_params is not None and spec_k:
+            dw = pcache.serving_window(draft_cfg or cfg)
+            window = max(window, dw) if (window and dw) else 0
+        self.window = window
         self.scheduler = Scheduler(self.pc, max_concurrency, obs=self.obs,
                                    tracer=self.tracer, window=self.window,
                                    max_queue=self.res.max_queue,
                                    overload_policy=self.res.overload_policy)
         self.ladder = DegradationLadder(self.res, obs=self.obs,
                                         tracer=self.tracer)
+        self.chaos = chaos
+        if chaos is not None:
+            chaos.bind(obs=self.obs, tracer=self.tracer)
         self.cache = pcache.init_paged_cache(cfg, self.pc, self.device)
         if calib_tokens is None:
             gen = torch.Generator().manual_seed(0)
             calib_tokens = torch.randint(
                 0, cfg.vocab_size, (2, min(64, self.pc.max_len)),
                 generator=gen)
+        calib_tokens = torch.as_tensor(np.asarray(calib_tokens))
         if self.pc.cur_kv:
             self.cache = runtime.calibrate_kv(
-                params, cfg, self.pc, self.cache,
-                torch.as_tensor(np.asarray(calib_tokens)))
+                params, cfg, self.pc, self.cache, calib_tokens)
         self._prefill_backend = runtime.resolve_prefill().name
         self.max_decode_window = max_decode_window
-        self.spec_k = 0
+
+        # --- speculative decoding (draft-k / verify-1) ----------------
+        self.spec_k = int(spec_k) if draft_params is not None else 0
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg or (cfg if draft_params is not None
+                                       else None)
+        self.draft_pc = None
+        self.draft_cache = None
+        if self.spec_k > 0:
+            runtime.check_supported(self.draft_cfg)
+            # one block table indexes both pools: the draft pool takes the
+            # target's block geometry (its per-block payload -- kv heads,
+            # rank -- may differ)
+            self.draft_pc = dataclasses.replace(
+                draft_pc or self.pc, block_size=self.pc.block_size,
+                n_blocks=self.pc.n_blocks,
+                max_blocks_per_seq=self.pc.max_blocks_per_seq)
+            self.draft_cache = pcache.init_paged_cache(
+                self.draft_cfg, self.draft_pc, self.device)
+            if self.draft_pc.cur_kv:
+                self.draft_cache = runtime.calibrate_kv(
+                    draft_params, self.draft_cfg, self.draft_pc,
+                    self.draft_cache, calib_tokens)
 
         self._next_rid = 0
         self.finished: Dict[int, Request] = {}
@@ -145,26 +191,31 @@ class Server:
             "repro_serving_queue_depth",
             "admission queue depth sampled per engine step",
             buckets=tuple(float(2 ** i) for i in range(12)))
-        # the speculative instruments exist so snapshots keep their
-        # names; nothing records into them until speculation is ported
-        m.counter("repro_serving_spec_windows_total",
-                  "speculative windows run")
-        m.counter("repro_serving_spec_fallbacks_total",
-                  "windows that fell back to plain decode (pool too full)")
-        m.counter("repro_serving_spec_tokens_proposed_total",
-                  "draft tokens proposed")
-        m.counter("repro_serving_spec_tokens_accepted_total",
-                  "draft tokens accepted by verify")
-        m.counter("repro_serving_spec_draft_time_s_total",
-                  "seconds drafting")
-        m.counter("repro_serving_spec_verify_time_s_total",
-                  "seconds verifying")
-        m.histogram("repro_serving_spec_accept_rate",
-                    "per-window accepted/proposed ratio",
-                    buckets=tuple(i / 10 for i in range(11)))
-        m.histogram("repro_serving_spec_window_tokens",
-                    "tokens committed per slot per speculative window",
-                    buckets=tuple(float(i) for i in range(1, 18)))
+        # speculative split: draft vs verify device time, and the
+        # model-level accept rate (accepted draft tokens / proposed)
+        self._c_spec_windows = m.counter(
+            "repro_serving_spec_windows_total", "speculative windows run")
+        self._c_spec_fallbacks = m.counter(
+            "repro_serving_spec_fallbacks_total",
+            "windows that fell back to plain decode (pool too full)")
+        self._c_spec_proposed = m.counter(
+            "repro_serving_spec_tokens_proposed_total",
+            "draft tokens proposed")
+        self._c_spec_accepted = m.counter(
+            "repro_serving_spec_tokens_accepted_total",
+            "draft tokens accepted by verify")
+        self._c_spec_draft_time = m.counter(
+            "repro_serving_spec_draft_time_s_total", "seconds drafting")
+        self._c_spec_verify_time = m.counter(
+            "repro_serving_spec_verify_time_s_total", "seconds verifying")
+        self._h_spec_accept = m.histogram(
+            "repro_serving_spec_accept_rate",
+            "per-window accepted/proposed ratio",
+            buckets=tuple(i / 10 for i in range(11)))
+        self._h_spec_window = m.histogram(
+            "repro_serving_spec_window_tokens",
+            "tokens committed per slot per speculative window",
+            buckets=tuple(float(i) for i in range(1, 18)))
 
     # -- counter views ---------------------------------------------------
     @property
@@ -358,6 +409,10 @@ class Server:
                        "preempted": req.n_preempted})
 
     def _run_prefill(self, admitted, now: float) -> None:
+        if self.chaos is not None:
+            # fires BEFORE any cache/pool mutation: step() rolls the
+            # admissions back and the retried step re-prefills bit-exactly
+            self.chaos.site("prefill", self._step_idx)
         sched = self.scheduler
         B = sched.max_concurrency
         lengths = np.zeros((B,), np.int64)
@@ -371,10 +426,17 @@ class Server:
         tokens = np.zeros((B, S), np.int64)
         for slot_id, toks in rows.items():
             tokens[slot_id, :len(toks)] = toks
+        table = torch.from_numpy(sched.block_table())
+        tokens, lengths = torch.from_numpy(tokens), torch.from_numpy(lengths)
         logits, self.cache = runtime.paged_prefill(
-            self.params, self.cfg, self.pc, torch.from_numpy(tokens),
-            torch.from_numpy(lengths), self.cache,
-            torch.from_numpy(sched.block_table()))
+            self.params, self.cfg, self.pc, tokens, lengths, self.cache,
+            table)
+        if self.spec_k:
+            # the draft shares the block table, so its pool must hold the
+            # same prefix KV the target's does
+            _, self.draft_cache = runtime.paged_prefill(
+                self.draft_params, self.draft_cfg, self.draft_pc, tokens,
+                lengths, self.draft_cache, table)
         toks, lps = self._sample_batch(
             logits, lambda s: len(s.req.out_tokens))
         t_now = time.perf_counter()
@@ -426,11 +488,15 @@ class Server:
         for i, slot in enumerate(sched.slots):
             if slot is not None:
                 next_toks[i, 0] = slot.next_token
+        next_toks = torch.from_numpy(next_toks)
+        table = torch.from_numpy(sched.block_table())
+        ctx = torch.from_numpy(sched.ctx_lens())
+        active = torch.from_numpy(sched.active_mask())
         logits, self.cache = runtime.paged_decode(
-            self.params, self.cfg, self.pc, torch.from_numpy(next_toks),
-            self.cache, torch.from_numpy(sched.block_table()),
-            torch.from_numpy(sched.ctx_lens()),
-            torch.from_numpy(sched.active_mask()))
+            self.params, self.cfg, self.pc, next_toks, self.cache, table,
+            ctx, active)
+        if self.spec_k:
+            self._draft_sync(next_toks, table, ctx, active)
         toks, lps = self._sample_batch(
             logits, lambda s: len(s.req.out_tokens))
         t_now = time.perf_counter()
@@ -444,9 +510,117 @@ class Server:
             self._maybe_retire(i, t_now)
         self._c_decode_steps.inc()
 
-    def _run_decode(self, now: float) -> None:
+    def _draft_sync(self, tokens, table, ctx, active) -> None:
+        """Teacher-forced KV write through the draft model (its
+        ``paged_verify``, logits unused): keeps the draft pool current
+        across plain-decode windows, so the accept rate recovers instead of
+        decaying after every fallback."""
+        _, self.draft_cache = runtime.paged_verify(
+            self.draft_params, self.draft_cfg, self.draft_pc, tokens,
+            self.draft_cache, table, ctx, active)
+
+    def _run_spec_decode(self) -> bool:
+        """One draft-k/verify-1 window over all running slots. Returns
+        False (without touching any device state) when the pool cannot fork
+        the window: the caller falls back to plain decode, so speculation
+        never causes a preemption. The window syncs the device once, when
+        its tokens are read."""
         sched = self.scheduler
+        k = self.spec_k
+        fork = sched.fork_for_spec(k)
+        if fork is None:
+            self._c_spec_fallbacks.inc()
+            self.tracer.event("spec_fallback", track=ENGINE_TRACK)
+            return False
+        B = sched.max_concurrency
+        spec_table = np.full((B, self.pc.max_blocks_per_seq), -1, np.int32)
+        for i, blocks in fork.tables.items():
+            spec_table[i, :len(blocks)] = blocks
+        if fork.copies:
+            # boundary-block copy-on-write copies, <= 1 per slot, in both
+            # pools (one block table indexes both)
+            src = torch.tensor([s for s, _ in fork.copies])
+            dst = torch.tensor([d for _, d in fork.copies])
+            pcache.copy_cache_blocks(self.cache, src, dst)
+            pcache.copy_cache_blocks(self.draft_cache, src, dst)
+
+        next_toks = np.zeros((B, 1), np.int64)
+        gen_starts = np.zeros((B,), np.int64)
+        for i, slot in enumerate(sched.slots):
+            if slot is not None:
+                next_toks[i, 0] = slot.next_token
+                gen_starts[i] = len(slot.req.out_tokens)
+        table = torch.from_numpy(spec_table)
+        ctx = torch.from_numpy(sched.ctx_lens())
+        active = torch.from_numpy(sched.active_mask())
+        greedy = self._all_greedy()
+        sampling = None if greedy else self._sampling_arrays()
+
+        t0 = time.perf_counter()
+        m0 = _mark(self.device)
+        d_toks, d_probs, self.draft_cache = speculative.draft_tokens(
+            self.draft_params, self.draft_cfg, self.draft_pc,
+            torch.from_numpy(next_toks), self.draft_cache, table, ctx,
+            active, sampling, gen_starts, k, greedy=greedy)
+        m1 = _mark(self.device)
+        ver_in = torch.cat([torch.from_numpy(next_toks).to(
+            d_toks.device, non_blocking=True), d_toks], dim=1)
+        emitted, n_emit, lps, self.cache = speculative.verify_tokens(
+            self.params, self.cfg, self.pc, ver_in, d_toks, d_probs,
+            self.cache, table, ctx, active, sampling, gen_starts,
+            greedy=greedy)
+        m2 = _mark(self.device)
+        emitted = emitted.cpu().numpy()             # the window's one sync
+        n_emit = n_emit.cpu().numpy()
+        lps = lps.float().cpu().numpy()
+        t_draft, t_verify = _seconds(m0, m1), _seconds(m1, m2)
+        self._c_spec_draft_time.inc(t_draft)
+        self._c_spec_verify_time.inc(t_verify)
+        self.tracer.add_span("spec_draft", t0, t_draft,
+                             track=ENGINE_TRACK, attrs={"k": k})
+        self.tracer.add_span("spec_verify", t0 + t_draft, t_verify,
+                             track=ENGINE_TRACK, attrs={"k": k})
+
+        t_now = time.perf_counter()
+        for i in list(sched.active_slots):
+            slot = sched.slots[i]
+            req = slot.req
+            take = min(int(n_emit[i]),
+                       req.max_new_tokens - len(req.out_tokens))
+            row = [int(t) for t in emitted[i, :take]]
+            if req.eos_id is not None and req.eos_id in row:
+                # a spec window truncates at eos on the host: tokens past
+                # it are never committed
+                row = row[:row.index(req.eos_id) + 1]
+                take = len(row)
+            req.out_tokens.extend(row)
+            req.out_logprobs.extend(float(lps[i, t]) for t in range(take))
+            sched.commit_spec(i, fork.tables[i], take)
+            slot.next_token = req.out_tokens[-1]
+            self._c_tokens.inc(take)
+            self._c_spec_proposed.inc(k)
+            self._c_spec_accepted.inc(speculative.record_window(
+                self._h_spec_accept, self._h_spec_window, k,
+                int(n_emit[i]), take))
+            self._maybe_retire(i, t_now)
+        self._c_spec_windows.inc()
+        self._c_decode_steps.inc()
+        return True
+
+    def _run_decode(self, now: float) -> None:
+        if self.chaos is not None:
+            # first line: an injected decode fault leaves every slot, block
+            # list and pool untouched, so the step just retries
+            self.chaos.site("decode", self._step_idx)
+        sched = self.scheduler
+        # drop out-of-window blocks BEFORE forking/reserving: the spec fork
+        # path never calls ensure_decode_blocks
         sched.evict_out_of_window()
+        # ladder step 1: speculation off under pressure (the window forks
+        # blocks a strained pool cannot spare)
+        if (self.spec_k and self.ladder.spec_allowed
+                and self._run_spec_decode()):
+            return
         # ladder step 2: shrink the multi-token window under pressure
         k = self.ladder.decode_window_cap(self._decode_window())
         remaining = {i: sched.slots[i].req.max_new_tokens
@@ -469,15 +643,24 @@ class Server:
                 budgets[i] = slot.req.max_new_tokens
         greedy = self._all_greedy()
         sampling = None if greedy else self._sampling_arrays()
+        table = torch.from_numpy(sched.block_table())
+        ctx = torch.from_numpy(sched.ctx_lens())
+        active = torch.from_numpy(sched.active_mask())
         toks_seq, lps_seq, self.cache = runtime.paged_decode_scan(
             self.params, self.cfg, self.pc, torch.from_numpy(next_toks),
-            self.cache, torch.from_numpy(sched.block_table()),
-            torch.from_numpy(sched.ctx_lens()),
-            torch.from_numpy(sched.active_mask()),
-            torch.from_numpy(budgets), sampling,
-            torch.from_numpy(gen_starts), n_steps=k, greedy=greedy)
+            self.cache, table, ctx, active, torch.from_numpy(budgets),
+            sampling, torch.from_numpy(gen_starts), n_steps=k,
+            greedy=greedy)
         toks_seq = toks_seq.cpu().numpy()          # the window's one sync
         lps_seq = lps_seq.float().cpu().numpy()
+        if self.spec_k:
+            # teacher-force the window's input tokens through the draft so
+            # its pool stays current for the next speculative window (rows
+            # that froze mid-window write past their committed context:
+            # dead positions, overwritten later)
+            self._draft_sync(torch.from_numpy(np.concatenate(
+                [next_toks, toks_seq[:k - 1].T], axis=1)), table, ctx,
+                active)
         t_now = time.perf_counter()
         for i in list(sched.active_slots):
             slot = sched.slots[i]
@@ -546,12 +729,15 @@ class Server:
 
     def step(self) -> bool:
         """One engine iteration. Returns False when nothing was runnable
-        (deadline/ladder passes still run on such steps)."""
+        (chaos/deadline/ladder passes still run on such steps, so squeeze
+        windows close and queued requests keep expiring)."""
         now = time.perf_counter()
         if self._t_start is None:
             self._t_start = now
         self._step_idx += 1
         self._step_t0 = now
+        if self.chaos is not None:
+            self.chaos.on_step(self, self._step_idx)
         self._h_queue_depth.observe(self.scheduler.queue_depth)
         self._expire_queued(now)
         pr = pressure_signals(self.scheduler, self.res.max_queue,
@@ -562,7 +748,13 @@ class Server:
         plan = self.scheduler.plan()
         toks_before = self.tokens_generated
         if plan.kind == "prefill":
-            self._run_prefill(plan.prefill, now)
+            try:
+                self._run_prefill(plan.prefill, now)
+            except InjectedFault:
+                self.scheduler.rollback_admission(plan.prefill)
+                self._c_step_faults.inc()
+                self._watchdog(now, "prefill_fault")
+                return True
             dt = time.perf_counter() - now
             n = self.tokens_generated - toks_before
             self._c_prefill_time.inc(dt)
@@ -572,7 +764,15 @@ class Server:
                                  attrs={"admitted": len(plan.prefill),
                                         "tokens": n})
         elif plan.kind == "decode":
-            self._run_decode(now)
+            try:
+                self._run_decode(now)
+            except InjectedFault:
+                # the decode hook fires before any state mutates: slots,
+                # block lists and pools are as planned, so the next step
+                # retries the same window
+                self._c_step_faults.inc()
+                self._watchdog(now, "decode_fault")
+                return True
             dt = time.perf_counter() - now
             n = self.tokens_generated - toks_before
             self._c_decode_time.inc(dt)
@@ -602,8 +802,8 @@ class Server:
 
     def stats(self) -> dict:
         """Serving report, derived from the obs registry snapshot; the
-        JAX package's Server reports the same keys (the speculative ones
-        stay 0, and ``jit_cache`` is all 0: nothing is compiled)."""
+        JAX package's Server reports the same keys (``jit_cache`` is all 0:
+        nothing is compiled)."""
         snap = self.obs.snapshot()
 
         def val(name, default=0.0):

@@ -349,3 +349,101 @@ def test_server_on_card_matches_cpu(gen, cur_kv):
             assert (pa.launches - before
                     == srv.stats()["n_decode_steps"] * cfg.n_layers)
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the speculative slice: verify shapes, M 40, spec-on == spec-off
+# ---------------------------------------------------------------------------
+
+# llama3.1-8b's verify at spec_k 4 on 8 slots: G' = (k + 1) G = 20
+_VERIFY_CTX = (256, 375, 494, 613, 732, 851, 970, 1088)
+
+
+def _verify_case(gen, span, r, dtype, B=8, K=8, G=4, bs=16, maxb=69):
+    """Verify-layout inputs: q (B, K, span G, r), a pool of B maxb blocks,
+    each slot's table a random permutation with the entries past
+    ctx + span - 1 unassigned (ragged contexts, split tables)."""
+    q = _randn(gen, (B, K, span * G, r), dtype)
+    kp = _randn(gen, (B * maxb, bs, K, r), dtype)
+    vp = _randn(gen, (B * maxb, bs, K, r), dtype)
+    table = torch.randperm(B * maxb, device="cuda", generator=gen).reshape(
+        B, maxb).int()
+    ctx = torch.tensor(_VERIFY_CTX[:B], dtype=torch.int32, device="cuda")
+    j = torch.arange(maxb, device="cuda")[None]
+    table = torch.where(j <= (ctx[:, None] + span - 1) // bs, table, -1)
+    return q, kp, vp, table.int(), ctx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [128, 64])
+@pytest.mark.parametrize("span", [2, 5, 8])
+def test_paged_kernel_verify_shapes_match_plain(gen, span, r, dtype):
+    """q_span 2 / 5 / 8 at the full-width verify shape (G' 8 / 20 / 32,
+    more than one m16 tile past span 4) on split tables: within the plain
+    version's bound, and two calls give the same bits."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    args = _verify_case(gen, span, r, dtype)
+    assert pa.plan(8, 8, span * 4, r, 16, 69, dtype).splits > 1
+    before = pa.launches
+    y = pa.paged_attention(*args, q_span=span)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    yr = paged_attention_ref(*args, q_span=span)
+    assert rel_err(y.cpu(), yr.cpu()) < _PAGED_TOL[dtype]
+    assert torch.equal(y, pa.paged_attention(*args, q_span=span))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,rk,n", [(4096, 256, 4096), (4096, 256, 1024),
+                                    (4096, 256, 14336)])
+def test_cur_matmul_verify_rows_match_plain(gen, m, rk, n, dtype):
+    """M 40 = 8 slots x 5 verify positions: above the M >= 32 gate, so the
+    verify forward's folded weights take the kernel."""
+    M = 40
+    x = _randn(gen, (M, m), dtype)
+    cu = (_randn(gen, (m, rk), torch.float32) * m ** -0.5).to(dtype)
+    rr = (_randn(gen, (rk, n), torch.float32) * rk ** -0.5).to(dtype)
+    assert layers.use_cur_kernel(m, rk, n, M, on_cuda=True)
+    y = cm.cur_matmul(x, cu, rr)
+    torch.cuda.synchronize()
+    assert rel_err(y.cpu(), cur_matmul_ref(x, cu, rr).cpu()) < _TOL[dtype]
+    assert torch.equal(y, cm.cur_matmul(x, cu, rr))
+
+
+@pytest.mark.parametrize("cur_kv", [False, True])
+def test_server_spec_on_card_matches_spec_off(gen, cur_kv):
+    """A small f32 Server on the card: greedy tokens with a self-draft
+    (k 3) equal the card's spec-off tokens and the CPU's spec-on tokens;
+    verify runs the kernel at q_span 4, every block returns."""
+    import numpy as np
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.launch.serve import make_workload
+    from repro_torch.models import init_params
+    from repro_torch.serving import PagedConfig, Server
+    cfg = get_smoke("llama3.1-8b")
+    params = init_params(0, cfg, "cpu")
+    wl = make_workload(6, cfg.vocab_size, max_new=10)
+    calib = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 64))
+    pc = PagedConfig.sized_for(60, 4, block_size=8, cur_kv=cur_kv,
+                               kv_rank=cfg.resolved_head_dim // 2)
+    outs = {}
+    for dev, k in (("cuda", 0), ("cuda", 3), ("cpu", 3)):
+        prm = params if dev == "cpu" else tree_map(lambda t: t.cuda(),
+                                                   params)
+        srv = Server(prm, cfg, pc, max_concurrency=4, calib_tokens=calib,
+                     draft_params=prm if k else None, spec_k=k, device=dev)
+        before = pa.launches
+        for w in wl:
+            srv.submit(w["prompt"], w["max_new_tokens"])
+        srv.drain()
+        outs[dev, k] = {i: r.out_tokens for i, r in srv.finished.items()}
+        assert srv.scheduler.alloc.n_free == pc.n_blocks
+        if dev == "cuda" and k:
+            st = srv.stats()
+            assert st["n_spec_windows"] > 0 and st["spec_accept_rate"] == 1.0
+            assert pa.launches - before >= st["n_spec_windows"] * 2 * \
+                cfg.n_layers
+    assert outs["cuda", 3] == outs["cuda", 0] == outs["cpu", 3]

@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert len(mods) > 25
     for name in ("serving.server", "serving.scheduler", "serving.runtime",
                  "serving.paged_cache", "serving.sampling",
-                 "serving.resilience", "attention.prefill",
+                 "serving.resilience", "serving.speculative",
+                 "testing.chaos", "attention.prefill",
                  "kernels.paged_attention.ops", "obs.metrics", "obs.trace",
                  "obs.export", "obs.loadgen", "obs.slo", "launch.serve"):
         assert f"repro_torch.{name}" in mods

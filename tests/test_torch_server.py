@@ -102,9 +102,20 @@ def test_server_greedy_tokens_match_jax(model, case):
 
 
 def test_server_ports_no_speculation_or_chaos(model):
+    """Without a draft (or with spec_k 0) and without a chaos engine the
+    Server is the plain one: no draft pool, no speculative window, no
+    fault, as in the JAX Server."""
     _, _, cfg, params = model
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Server(params, cfg, PagedConfig(), spec_k=4, draft_params=params,
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Server(params, cfg, PagedConfig(), chaos=object(), device="cpu")
+    wl = tserve.make_workload(4, cfg.vocab_size, max_new=6)
+    for kw in ({}, {"spec_k": 4}, {"draft_params": params}):
+        srv = Server(params, cfg, PagedConfig.sized_for(64, 4),
+                     max_concurrency=4, device="cpu", **kw)
+        assert srv.spec_k == 0 and srv.draft_cache is None
+        assert srv.chaos is None
+        for w in wl:
+            srv.submit(w["prompt"], w["max_new_tokens"])
+        srv.drain()
+        st = srv.stats()
+        assert st["completed"] == len(wl)
+        assert st["n_spec_windows"] == st["n_spec_fallbacks"] == 0
+        assert st["spec_accept_rate"] == 0.0 and st["step_faults"] == 0

@@ -229,8 +229,8 @@ def test_serve_cli_runs_on_cpu(flags):
     assert stats["attn_backends"]["paged_decode"] == "paged_ref"
 
 
-@pytest.mark.parametrize("flag", [["--legacy"], ["--draft", "self"],
-                                  ["--chaos", "plan.json"], ["--prof"],
+@pytest.mark.parametrize("flag", [["--legacy"], ["--paged-kernel", "off"],
+                                  ["--prefill-backend", "fold"], ["--prof"],
                                   ["--paged-kernel", "on"],
                                   ["--prefill-backend", "reconstruct"]])
 def test_serve_cli_not_ported_flags_raise(flag):
