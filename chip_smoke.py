@@ -34,13 +34,23 @@ nonzero:
               and self:1): card spec-on == card spec-off == CPU spec-on;
               a fixed chaos plan (transient prefill/decode errors, a
               pool squeeze, latency spikes): the chaos-free tokens and
-              the same fault events on the card and the CPU
+              the same fault events on the card and the CPU; the dense
+              cache's prefill / decode_step logits card vs CPU (2e-5),
+              ``generate``'s greedy tokens card == CPU == the Server's,
+              the Server with ``paged_kernel="off"`` on the card (the
+              kernel's tokens, no launch), and a checkpoint saved from
+              the card restored on the CPU bit-identical
   6. main     ``cure()`` on full-width llama3.1-8b (random weights made on
-              the card, 10 of 32 layers CURed at r_max 256), run
-              ``CURE_RUNS`` times: the first (cold) run's stage times
-              alone, then the median and range of the others; after the
-              last run, perplexity of the original and the folded model
-              and the launch counts of both kernels over that run
+              the card, 10 of 32 layers CURed at r_max 256, saved to
+              ``build/chip_smoke_ckpt`` and smoke-generated through the
+              Server), run ``CURE_RUNS`` times: the first (cold) run's
+              stage times alone, then the median and range of the
+              others, the checkpoint's bytes and save GB/s (the free
+              disk is checked first); after the last run, perplexity of
+              the original and the folded model, the launch counts over
+              that run, and the checkpoint restored onto the card
+              through serve's ``--draft DIR`` function: every leaf and
+              the folded logits bit-equal; the directory is deleted
   7. serve    the last run's CURed model served by ``Server`` on the card
               (max_concurrency 8, block 16): workload A (the serve CLI's
               ``make_workload``) and workload B (loadgen burst, prompts
@@ -49,20 +59,29 @@ nonzero:
               bytes and the launches of all three kernels, with checks;
               then speculative serving at spec_k 4: (a) the original
               model drafted by the CURed one (workload B, dense pool,
-              greedy, against its spec-off run), (b) the CURed model
-              drafted by itself (workload B, CUR-KV pool r 64), (c) (a)
-              on workload A at temperature 0.8, top-p 0.95; accept rate,
-              windows, draft/verify time, launches and the agreement
-              with spec-off; then a chaos plan on workload A run twice
-              (same events, every request finished, pool drained); last
-              a profiled decode window
+              greedy, against its spec-off run), (a') (a) with the draft
+              restored from phase 6's checkpoint (the same tokens and
+              accept rate), (b) the CURed model drafted by itself
+              (workload B, CUR-KV pool r 64), (c) (a) on workload A at
+              temperature 0.8, top-p 0.95; accept rate, windows,
+              draft/verify time, launches and the agreement with
+              spec-off; then a chaos plan on workload A run twice (same
+              events, every request finished, pool drained); the
+              static-batch engine (serve --legacy's ``generate``, 8 x
+              512-token prompts, 64 new tokens): prefill / decode times,
+              logits against ``forward()`` (2e-2), kernels launched in
+              its prefill, agreement with the Server; last a profiled
+              decode window
   8. split    device time by kernel (torch.profiler, after every timed
               phase): cur_matmul per weight and pass against the
               torch.matmul chain, flash_attention and paged_attention
               against SDPA (also at the verify shape), and one traced
               folded perplexity pass (busy and idle share, top kernels);
               one speculative window of run (a) profiled by part (draft,
-              verify, paged_attention at q_span 5) and its host syncs
+              verify, paged_attention at q_span 5) and its host syncs;
+              serve --prof's ``TorchProfiler.scope`` around one decode
+              window: its Chrome trace names paged_attention's kernel
+              and the tracer holds the ``prof:`` events
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernel table.
@@ -91,6 +110,10 @@ CUR_SHAPES = {"wq": (4096, 256, 4096), "wk": (4096, 256, 1024),
 CUR_M = 2048                                  # 4 x 512 tokens
 FLASH_SHAPE = (4, 32, 8, 512, 128)            # B, H, K, S, d
 CURE_RUNS = 4                                 # 1 cold + 3 warm cure() runs
+ENGINE_SHAPE = (8, 512, 64)                   # B, prompt, new (legacy engine)
+ENGINE_CHECK_STEPS = (1, 16, 63)              # decode steps held to forward()
+# cure()'s save stage (git-ignored; deleted at phase 6's end)
+CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 PAGED_SHAPE = (8, 8, 4, 16, 69)               # B, K, G, bs, maxb (serving)
 KV_RANK = 64                                  # CUR-KV pool rank, hd / 2
 # workload B's decode contexts (prompts 256 / 512 / 1024 + up to 64 tokens)
@@ -841,6 +864,94 @@ def phase_small():
             raise SystemExit("small-model serving check failed")
     small_spec(params, cfg, wl, calib_toks)
     small_chaos(cparams, ccfg_model, wl, calib_toks, served[False]["cuda"])
+    small_engine(cparams, ccfg_model, ds, wl, calib_toks,
+                 served[False]["cuda"])
+
+
+def small_engine(params, cfg, ds, wl, calib_toks, served):
+    """Phase 5's dense-cache path, the checkpoint manager and the
+    paged-kernel switch on the CURed f32 model: prefill / decode_step
+    logits on the card against the CPU (2e-5); ``generate``'s greedy
+    tokens per request on the card == on the CPU == the Server's
+    (``served``, dense pool, kernel); the Server with ``paged_kernel="off"``
+    on the card gives the same tokens and launches no paged_attention; a
+    checkpoint saved from the card restores on the CPU bit-identical."""
+    import shutil
+    import torch
+    from repro_torch.bridge import tree_map
+    from repro_torch.dist import (
+        CheckpointManager, load_tree_template, save_tree_template,
+        tree_flatten)
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.serve import generate
+    from repro_torch.serving import PagedConfig, Server
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    toks = ds.batch_at(2)["tokens"][:, :68]            # B 4: 64 + 4 steps
+    B, S = toks.shape[0], 64
+    rels, logits = [], {}
+    c0, f0 = cm.launches, fa.launches
+    for dev, prm in (("cuda", params), ("cpu", cpu_params)):
+        t = toks.to(dev)
+        cache = init_cache(cfg, B, S + 4, dev)
+        out, cache = prefill(prm, cfg, {"tokens": t[:, :S]}, cache)
+        logits[dev] = [out.cpu()]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            dcur, dflash = cm.launches - c0, fa.launches - f0
+        for j in range(4):
+            pos = torch.full((B, 1), S + j, dtype=torch.int32, device=dev)
+            step = {"tokens": t[:, S + j:S + j + 1]}
+            out, cache = decode_step(prm, cfg, step, cache, pos)
+            logits[dev].append(out.cpu())
+    rels = [rel_err(a, b) for a, b in zip(logits["cuda"], logits["cpu"])]
+    say(f"  dense cache B={B} prefill {S} + 4 decode steps: card vs CPU "
+        f"logits rel max {max(rels):.3e} (tol {F32_TOL:g}); prefill "
+        f"launches cur_matmul {dcur} flash_attention {dflash}")
+    bad = [] if (max(rels) < F32_TOL and dcur > 0 and dflash > 0) else [
+        "dense-cache logits"]
+    gen = {"cuda": {}, "cpu": {}}
+    for i, w in enumerate(wl):
+        for dev, prm in (("cuda", params), ("cpu", cpu_params)):
+            p = torch.tensor([w["prompt"]], device=dev)
+            gen[dev][i] = generate(prm, cfg, p, w["max_new_tokens"]
+                                   ).tokens[0].tolist()
+    same = gen["cuda"] == gen["cpu"] == served
+    say(f"  generate() greedy, {len(wl)} requests one at a time: card, CPU "
+        f"and Server tokens {'identical' if same else 'DIFFER'}")
+    if not same:
+        bad.append("generate tokens")
+    max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
+    srv = Server(params, cfg, PagedConfig.sized_for(max_len, 4,
+                                                   block_size=16),
+                 max_concurrency=4, calib_tokens=calib_toks, device="cuda",
+                 paged_kernel="off")
+    p0 = pa.launches
+    off = _serve_all(srv, wl)
+    backend = srv.stats()["attn_backends"]["paged_decode"]
+    say(f"  Server paged_kernel=off on the card ({backend}): tokens "
+        f"{'identical to' if off == served else 'DIFFER from'} the "
+        f"kernel's; paged_attention launches {pa.launches - p0}")
+    if not (off == served and pa.launches == p0 and backend == "paged_ref"):
+        bad.append("paged_kernel off")
+    d = os.path.join(ROOT, "build", "chip_smoke_small_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    CheckpointManager(d, keep_n=1).save(0, {"params": params})
+    save_tree_template(os.path.join(d, "template.json"), {"params": params})
+    step, back = CheckpointManager(d).restore(
+        load_tree_template(os.path.join(d, "template.json")), device="cpu")
+    mine, ref = tree_flatten(back), tree_flatten({"params": cpu_params})
+    exact = len(mine) == len(ref) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(mine, ref))
+    shutil.rmtree(d)
+    say(f"  checkpoint saved from the card, restored on the CPU: step "
+        f"{step}, {len(mine)} leaves, bit-identical {exact}")
+    if not exact:
+        bad.append("checkpoint card -> CPU")
+    if bad:
+        raise SystemExit(f"small-model engine checks failed: {bad}")
 
 
 def _serve_all(srv, wl, chaos=None):
@@ -936,34 +1047,56 @@ def small_chaos(params, cfg, wl, calib_toks, clean):
         raise SystemExit("small-model chaos check failed")
 
 
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+
+
 def phase_main():
+    import shutil
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.dist import tree_flatten
     from repro_torch.kernels.cur_matmul import cur_matmul as cm
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.launch import cure as cure_mod
+    from repro_torch.launch.serve import load_draft
     from repro_torch.train.evaluate import perplexity
     say("== phase 6: main path, llama3.1-8b at full width")
     args = cure_mod.parser().parse_args([
         "--arch", "llama3.1-8b", "--layers", "10", "--r-max", "256",
         "--selection", "wanda_deim", "--svd", "randomized",
         "--pipeline", "batched", "--calib-batches", "4",
-        "--calib-batch", "4", "--calib-len", "512", "--device", "cuda"])
+        "--calib-batch", "4", "--calib-len", "512", "--device", "cuda",
+        "--ckpt-dir", CKPT_DIR])
+    # every cure() run saves (keep-N 1: the next save holds its .tmp dir
+    # beside the last step) and smoke-generates through the Server
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    need = 2 * get_config("llama3.1-8b").param_count() * 2    # bf16, bound
+    free = shutil.disk_usage(CKPT_DIR).free
+    say(f"  checkpoint dir {os.path.relpath(CKPT_DIR, ROOT)}: {free} bytes "
+        f"free, two copies of the full bf16 tree need at most {need}")
+    if free < need:
+        raise SystemExit(f"not enough disk for the cure() save stage: "
+                         f"{free} bytes free, {need} needed")
     # cure() runs CURE_RUNS times on the same seeds. The first run pays
     # the first use of every CUDA kernel and library handle (the linalg of
     # compress above all) and is reported alone; the others give the
     # median and range of each stage. The main path proper is the last
     # run: the counts are set to 0 just before it.
-    stages, layers = [], set()
+    stages, layers, ckpt_bytes = [], set(), []
     for i in range(CURE_RUNS):
         if i == CURE_RUNS - 1:
             torch.cuda.reset_peak_memory_stats()
-            cm.launches = 0
-            fa.launches = 0
+            cm.launches = fa.launches = pa.launches = 0
             t0 = time.perf_counter()
         run = cure_mod.cure_run(args)
         stages.append(run.report["stages_s"])
         layers.add(tuple(run.report["layers_compressed"]))
+        ckpt_bytes.append(_dir_bytes(CKPT_DIR))
         if i < CURE_RUNS - 1:
             del run
             torch.cuda.empty_cache()
@@ -975,12 +1108,19 @@ def phase_main():
         say(f"  cure() warm {key}: median "
             f"{statistics.median(warm)} s, range {warm[0]}-{warm[-1]} s "
             f"over {len(warm)} runs")
+    rates = [b / st["save"] / 1e9 for b, st in zip(ckpt_bytes, stages)]
+    say(f"  save stage: checkpoint {ckpt_bytes[-1]} bytes on disk "
+        f"(step dir + template.json); {rates[0]:.3f} GB/s cold, warm "
+        f"{', '.join(f'{r:.3f}' for r in rates[1:])} GB/s")
+    g = run.report["generate"]
+    say(f"  generate stage (last run): {g['tokens']} tokens via "
+        f"{g['engine']}, {g['tok_per_s']} tok/s")
     ds = SyntheticLM(DataConfig(run.cfg.vocab_size, 512, 4, seed=1),
                      "cuda")
     evl = [ds.batch_at(1000 + i) for i in range(2)]
     ppl_orig = perplexity(run.params, run.cfg, evl)
     torch.cuda.synchronize()
-    main_cur, main_flash = cm.launches, fa.launches
+    main_cur, main_flash, main_paged = cm.launches, fa.launches, pa.launches
     cm.launches = 0
     fa.launches = 0
     t1 = time.perf_counter()
@@ -991,6 +1131,23 @@ def phase_main():
     from repro_torch.models import forward
     logits = forward(run.cured_params, run.cured_cfg, evl[0])
     torch.cuda.synchronize()
+    # restore through template.json onto the card, with the function that
+    # serve's --draft DIR calls; the restored tree is phase 7's draft
+    t2 = time.perf_counter()
+    step, draft, draft_cfg = load_draft(CKPT_DIR, run.cfg, "cuda")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t2
+    mine, ref = tree_flatten(draft), tree_flatten(run.cured_params)
+    leaves_equal = len(mine) == len(ref) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(mine, ref))
+    logits_equal = torch.equal(forward(draft, draft_cfg, evl[0]), logits)
+    restored_bytes = sum(t.numel() * t.element_size() for t in mine)
+    shutil.rmtree(CKPT_DIR)
+    say(f"  restore (load_draft) of step {step}: {len(mine)} leaves, "
+        f"{restored_bytes} bytes in {t_restore:.3f} s "
+        f"({restored_bytes / t_restore / 1e9:.3f} GB/s); every leaf "
+        f"torch.equal {leaves_equal}; folded logits on evl[0] torch.equal "
+        f"{logits_equal}; checkpoint dir deleted")
     worst = max(rep["weights"], key=lambda w: w["rel_fro_err"])
     say(f"  depth {rep['n_layers']} of 32 (no depth cut), d_model "
         f"{run.cfg.d_model}, vocab {run.cfg.vocab_size}, "
@@ -1012,8 +1169,9 @@ def phase_main():
     say(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB; wall {time.perf_counter() - t0:.1f} s")
     say(f"  launches cure+original perplexity: cur_matmul {main_cur} "
-        f"flash_attention {main_flash}; folded perplexity pass: "
-        f"cur_matmul {fold_cur} flash_attention {fold_flash}")
+        f"flash_attention {main_flash} paged_attention {main_paged}; "
+        f"folded perplexity pass: cur_matmul {fold_cur} flash_attention "
+        f"{fold_flash}")
     checks = {
         "saved_deployed == 715653120":
             rep["params"]["saved_deployed"] == 715_653_120,
@@ -1026,12 +1184,20 @@ def phase_main():
             and bool(torch.isfinite(logits).all()),
         "cur_matmul launched on the folded pass": fold_cur > 0,
         "flash_attention launched on the folded pass": fold_flash > 0,
+        "stages_s has save and generate": all(
+            {"save", "generate"} <= set(st) for st in stages),
+        "generate: 4 x 8 tokens via serving": g["engine"] == "serving"
+            and g["tokens"] == 4 * 8,
+        "paged_attention launched by the generate stage": main_paged > 0,
+        "restored checkpoint: every leaf torch.equal": leaves_equal,
+        "restored checkpoint: folded logits torch.equal": logits_equal,
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise SystemExit(f"main path checks failed: {bad}")
     return ({"cur_matmul": main_cur + fold_cur,
-             "flash_attention": main_flash + fold_flash}, run)
+             "flash_attention": main_flash + fold_flash,
+             "paged_attention": main_paged}, run, (draft, draft_cfg))
 
 
 def _prefill_logits(params, cfg, pc, cache, prompt):
@@ -1074,8 +1240,9 @@ def _workloads(V):
     }
 
 
-def phase_serve(run):
-    """The CURed model of the last cure() run served on the card."""
+def phase_serve(run, draft):
+    """The CURed model of the last cure() run served on the card;
+    ``draft`` is (params, cfg) of its checkpoint as phase 6 restored it."""
     import numpy as np
     import torch
     from repro_torch.kernels.cur_matmul import cur_matmul as cm
@@ -1155,9 +1322,11 @@ def phase_serve(run):
             torch.cuda.empty_cache()
     if bad:
         raise SystemExit(f"serve checks failed: {bad}")
-    for k, v in serve_spec(run, workloads, base).items():
+    for k, v in serve_spec(run, workloads, base, draft).items():
         launches[k] += v
     for k, v in serve_chaos(params, cfg, workloads["A"]).items():
+        launches[k] += v
+    for k, v in serve_legacy(params, cfg).items():
         launches[k] += v
     profile_decode(params, cfg, workloads["B"])
     return launches
@@ -1216,13 +1385,15 @@ def _agreement(target, cfg, pc, wl, spec, off):
     return text
 
 
-def serve_spec(run, workloads, base):
+def serve_spec(run, workloads, base, draft):
     """Speculative serving at full width, spec_k 4, max_concurrency 8,
     block 16: (a) the original model drafted by the CURed one (the
     in-memory form of the --emit-draft companion), workload B, dense pool,
-    greedy, with the same target's spec-off run; (b) the CURed model
-    drafted by itself, workload B, CUR-KV pool r 64, greedy; (c) (a) on
-    workload A at temperature 0.8, top-p 0.95. Returns the kernels'
+    greedy, with the same target's spec-off run; (a') (a) with the draft
+    restored from cure()'s checkpoint (``draft``, by serve's --draft DIR
+    function): its accept rate and tokens must equal (a)'s; (b) the CURed
+    model drafted by itself, workload B, CUR-KV pool r 64, greedy; (c) (a)
+    on workload A at temperature 0.8, top-p 0.95. Returns the kernels'
     launches over the runs."""
     import torch
     from repro_torch.kernels.cur_matmul import cur_matmul as cm
@@ -1267,6 +1438,8 @@ def serve_spec(run, workloads, base):
     runs = [
         ("(a) B dense, original model, draft = CURed model", run.params,
          run.cfg, run.cured_params, run.cured_cfg, "B", False, None, off_a),
+        ("(a') (a) with the draft restored from the checkpoint", run.params,
+         run.cfg, draft[0], draft[1], "B", False, None, off_a),
         ("(b) B CUR-KV r=64, CURed model, draft self", run.cured_params,
          run.cured_cfg, run.cured_params, None, "B", True, None,
          base["B", True]),
@@ -1295,8 +1468,17 @@ def serve_spec(run, workloads, base):
         for k in launches:
             launches[k] += n[k]
         toks = {k: r.out_tokens for k, r in finished.items()}
-        agree = (_agreement(tgt, tcfg, pc, wl, toks, off) if off is not None
-                 else "agreement with spec-off: not compared (sampled)")
+        if label.startswith("(a')"):
+            same_a = (toks == run_a[0]
+                      and st["spec_accept_rate"] == run_a[1])
+            agree = (f"tokens and accept rate equal to (a)'s (the same "
+                     f"draft bits): {same_a}")
+        elif off is not None:
+            agree = _agreement(tgt, tcfg, pc, wl, toks, off)
+        else:
+            agree = "agreement with spec-off: not compared (sampled)"
+        if label.startswith("(a)"):
+            run_a = (toks, st["spec_accept_rate"])
         say(f"  {label}: {len(wl)} requests, {st['tokens_generated']} "
             f"tokens, {st['tokens_per_s']:.1f} tok/s (busy "
             f"{st['tokens_per_s_busy']:.1f}); TTFT p50 "
@@ -1325,11 +1507,119 @@ def serve_spec(run, workloads, base):
                 n["paged_attention"]
                 >= st["n_spec_windows"] * tcfg.n_layers * 2,
         }
+        if label.startswith("(a')"):
+            checks["tokens and accept rate equal (a)'s"] = same_a
         bad += [f"{label}: {k}" for k, ok in checks.items() if not ok]
         del srv
         torch.cuda.empty_cache()
     if bad:
         raise SystemExit(f"speculative serve checks failed: {bad}")
+    return launches
+
+
+def serve_legacy(params, cfg):
+    """The static-batch engine (serve --legacy's ``generate``) on the CURed
+    model: 8 SyntheticLM prompts of 512 tokens, 64 new tokens, greedy.
+    Prints prefill wall, decode wall per step, tokens/s and the dense
+    cache's bytes; checks the prefill logits and the decode logits at
+    steps 1, 16 and 63 against ``forward()`` over the grown sequence
+    (2e-2, bf16) and that the prefill launched cur_matmul and
+    flash_attention. Then serves the same prompts through the Server and
+    prints the greedy agreement (not checked: bf16 near-ties). Returns the
+    kernels' launches over both runs."""
+    import torch
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.dist import tree_flatten
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.models import forward
+    from repro_torch.serve import engine
+    from repro_torch.serving import PagedConfig, Server
+    B, S, n_new = ENGINE_SHAPE
+    prompts = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=2),
+                          "cuda").batch_at(0)["tokens"]
+    rec = {"steps": 0, "logits": {}}
+    real_prefill, real_decode = engine.prefill, engine.decode_step
+
+    def prefill(prm, c, batch, cache):
+        torch.cuda.synchronize()
+        c0, f0 = cm.launches, fa.launches
+        t0 = time.perf_counter()
+        out = real_prefill(prm, c, batch, cache)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        rec["prefill_launches"] = (cm.launches - c0, fa.launches - f0)
+        rec["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tree_flatten(cache))
+        rec["logits"][0] = out[0].clone()
+        return out
+
+    def decode_step(prm, c, batch, cache, pos):
+        out = real_decode(prm, c, batch, cache, pos)
+        rec["steps"] += 1
+        if rec["steps"] in ENGINE_CHECK_STEPS:
+            rec["logits"][rec["steps"]] = out[0].clone()
+        return out
+
+    engine.prefill, engine.decode_step = prefill, decode_step
+    torch.cuda.synchronize()
+    cm.launches = fa.launches = pa.launches = 0
+    try:
+        t0 = time.perf_counter()
+        out = engine.generate(params, cfg, prompts, n_new)
+        toks = out.tokens.cpu()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.prefill, engine.decode_step = real_prefill, real_decode
+    launches = {"cur_matmul": cm.launches, "flash_attention": fa.launches,
+                "paged_attention": pa.launches}
+    decode_s = wall - rec["prefill_s"]
+    seq = torch.cat([prompts, out.tokens[:, :n_new - 1]], dim=1)
+    full = forward(params, cfg, {"tokens": seq})
+    rels = {t: rel_err(lg, full[:, S - 1 + t])
+            for t, lg in sorted(rec["logits"].items())}
+    del full
+    say(f"  legacy engine generate(): B={B} prompts of {S} tokens, {n_new} "
+        f"new (greedy): prefill {rec['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{decode_s:.3f} s = {decode_s * 1e3 / rec['steps']:.2f} ms per "
+        f"step over {rec['steps']} steps, {toks.numel() / wall:.1f} tok/s "
+        f"(wall {wall:.3f} s); dense cache {rec['cache_bytes']} bytes; "
+        f"prefill launches cur_matmul {rec['prefill_launches'][0]} "
+        f"flash_attention {rec['prefill_launches'][1]}; run launches "
+        f"{json.dumps(launches)}")
+    say(f"  legacy engine logits vs forward() over the grown sequence "
+        f"(0 = prefill): " + ", ".join(f"step {t} rel {r:.3e}"
+                                       for t, r in rels.items())
+        + f" (tol {BF16_TOL:g})")
+    srv = Server(params, cfg, PagedConfig.sized_for(S + n_new, B,
+                                                   block_size=16),
+                 max_concurrency=B, device="cuda")
+    p0 = pa.launches
+    for row in prompts.tolist():
+        srv.submit(row, n_new)
+    srv.drain()
+    launches["paged_attention"] += pa.launches - p0
+    served = [srv.finished[i].out_tokens for i in range(B)]
+    same = sum(a == b for i in range(B)
+               for a, b in zip(toks[i].tolist(), served[i]))
+    say(f"  legacy engine vs Server (paged, same prompts, greedy): "
+        f"{same}/{B * n_new} tokens agree, "
+        f"{sum(toks[i].tolist() == served[i] for i in range(B))}/{B} "
+        f"requests identical (printed, not checked: bf16 near-ties)")
+    del srv
+    torch.cuda.empty_cache()
+    checks = {
+        "logits within 2e-2 of forward()": len(rels) == 1 + len(
+            ENGINE_CHECK_STEPS) and max(rels.values()) < BF16_TOL,
+        "cur_matmul launched in the prefill": rec["prefill_launches"][0] > 0,
+        "flash_attention launched in the prefill":
+            rec["prefill_launches"][1] > 0,
+        "tokens (8, 64)": tuple(toks.shape) == (B, n_new),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"legacy engine checks failed: {bad}")
     return launches
 
 
@@ -1464,6 +1754,59 @@ def phase_split(run):
         say(f"    {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d} x {e.key[:90]}")
     profile_spec_window(run)
+    profile_scope(run)
+
+
+def profile_scope(run):
+    """serve --prof's capture: one ``TorchProfiler.scope`` around one
+    decode window of the CURed model (8 slots of workload B, dense pool).
+    The Chrome trace it writes must name paged_attention's kernel
+    (``paged_split_kernel``), and the tracer must hold the ``prof:decode``
+    start and stop events with the card's memory snapshot."""
+    import shutil
+    from repro_torch.obs import TorchProfiler, Tracer
+    from repro_torch.serving import PagedConfig, Server
+    reqs = _workloads(run.cfg.vocab_size)["B"][:8]
+    max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in reqs)
+    srv = Server(run.cured_params, run.cured_cfg,
+                 PagedConfig.sized_for(max_len, 8, block_size=16),
+                 max_concurrency=8, device="cuda")
+    for w in reqs:
+        srv.submit(w["prompt"], w["max_new_tokens"])
+    srv.step()                                  # the prefill of all 8
+    out = os.path.join(ROOT, "build", "chip_smoke_torchprof")
+    shutil.rmtree(out, ignore_errors=True)
+    tracer = Tracer()
+    prof = TorchProfiler(out, tracer=tracer)
+    steps0 = srv.n_decode_steps
+    with prof.scope("decode"):
+        srv.step()
+    steps = srv.n_decode_steps - steps0
+    del srv
+    kernels = {}
+    for path in prof.paths:
+        with open(path) as f:
+            for e in json.load(f)["traceEvents"]:
+                if e.get("cat") == "kernel":
+                    kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    paged = sum(n for k, n in kernels.items() if "paged_split_kernel" in k)
+    evs = [(e["name"], e["attrs"].get("phase"),
+            e["attrs"].get("mem", {}).get("cuda:0", {}).get(
+                "allocated_bytes.all.current", 0)) for e in tracer.events]
+    say(f"  TorchProfiler.scope('decode') around one decode window "
+        f"({steps} steps): {len(prof.paths)} trace file(s) "
+        f"{[os.path.relpath(p, ROOT) for p in prof.paths]}, "
+        f"{sum(kernels.values())} kernel events, paged_split_kernel "
+        f"(paged_attention) {paged}; tracer events "
+        f"{[(n, ph) for n, ph, _ in evs]}, allocated bytes at start / "
+        f"stop {[m for _, _, m in evs]}")
+    shutil.rmtree(out)
+    ok = (len(prof.paths) == 1 and paged > 0
+          and [(n, ph) for n, ph, _ in evs] == [("prof:decode", "start"),
+                                               ("prof:decode", "stop")]
+          and all(m > 0 for _, _, m in evs))
+    if not ok:
+        raise SystemExit("profiler capture check failed")
 
 
 def _kernel_rows(prof):
@@ -1651,16 +1994,16 @@ def main():
     if 5 in phases:
         phase_small()
     if 6 in phases:
-        main_launches, run = phase_main()
+        main_launches, run, draft = phase_main()
         if 7 in phases:
-            serve_launches = phase_serve(run)
+            serve_launches = phase_serve(run, draft)
         if 8 in phases:
             phase_split(run)
     if phases != set(range(1, 9)):
         say(f"ran phases {sorted(phases)} only: no kernel table")
         return 1
-    # launches on the main paths: the last cure() run with both
-    # perplexity passes (phase 6) and the four serve runs (phase 7)
+    # launches on the main paths: the last cure() run (its generate stage
+    # included) with both perplexity passes (phase 6) and phase 7's runs
     launches = {k: main_launches.get(k, 0) + serve_launches[k]
                 for k in serve_launches}
     say(f"launches phase 6 {json.dumps(main_launches)}, phase 7 "

@@ -156,8 +156,26 @@ register("paged_decode", Backend(
 register("paged_decode", Backend("paged_ref", Caps(window=True), _paged_ref))
 
 
-def resolve_paged(on_cuda: bool) -> Backend:
-    """The ``paged_decode`` backend for a pool on a CUDA device or not."""
+PAGED_KERNEL_MODES = ("auto", "on", "off")
+
+
+def resolve_paged(on_cuda: bool, mode: str = "auto") -> Backend:
+    """The ``paged_decode`` backend for a pool on a CUDA device or not.
+
+    ``mode`` is the caller's explicit choice (serve's ``--paged-kernel``):
+    "auto" and "on" take the kernel for a CUDA pool; "off" takes the plain
+    version ``paged_ref`` wherever the pool lies; "on" for a pool off the
+    card raises, since the port's kernel has no interpret mode."""
+    if mode not in PAGED_KERNEL_MODES:
+        raise ValueError(f"paged kernel mode must be one of "
+                         f"{PAGED_KERNEL_MODES}, got {mode!r}")
+    if mode == "off":
+        return next(be for be in _REGISTRY["paged_decode"]
+                    if be.name == "paged_ref")
+    if mode == "on" and not on_cuda:
+        raise ValueError(
+            "paged kernel 'on' needs a pool on a CUDA device: the port's "
+            "paged_attention kernel has no interpret mode")
     return resolve("paged_decode", on_cuda=on_cuda)
 
 

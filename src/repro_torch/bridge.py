@@ -16,7 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
-_NP_TO_TORCH = {
+NP_TO_TORCH = {  # numpy dtype name -> torch dtype (ml_dtypes bfloat16)
     "float32": torch.float32, "float64": torch.float64,
     "float16": torch.float16, "bfloat16": torch.bfloat16,
     "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
@@ -33,7 +33,7 @@ def to_torch(tree: Any, device) -> Any:
         return type(tree)(to_torch(v, device) for v in tree)
     name = str(getattr(tree, "dtype", np.asarray(tree).dtype))
     arr = np.asarray(tree)
-    dt = _NP_TO_TORCH.get(name)
+    dt = NP_TO_TORCH.get(name)
     if dt is None:
         raise TypeError(f"bridge: unsupported leaf dtype {name}")
     if dt == torch.bfloat16:

@@ -1,0 +1,14 @@
+"""repro_torch.dist — fault-tolerant checkpointing (``repro.dist`` in the
+JAX package; its sharding, elastic and compressed-collective modules are
+not ported yet).
+
+checkpoint   Atomic, checksummed, keep-N, async CheckpointManager on the
+             JAX package's on-disk format.
+"""
+from repro_torch.dist.checkpoint import (
+    CheckpointManager, TensorSpec, load_tree_template, save_tree_template,
+    template_from, tree_flatten, tree_template, tree_unflatten)
+
+__all__ = ["CheckpointManager", "TensorSpec", "load_tree_template",
+           "save_tree_template", "template_from", "tree_flatten",
+           "tree_template", "tree_unflatten"]

@@ -6,12 +6,16 @@
 Stages (each timed on the host clock, ending in a device synchronise):
 init (random params made on the device) -> calibrate -> plan (uniform
 ranks only) -> compress (batched shape-class pipeline by default) -> fold
-C@U. The report keeps the JAX launcher's schema for these stages
-(``stages_s``, ``params.*``, ``weights[]``, ``layers_compressed``).
+C@U -> save (``dist.CheckpointManager``, step 0 of ``--ckpt-dir``, with
+its ``template.json``) -> smoke-generate through ``repro_torch.serving``
+(the static-batch engine for archs the paged runtime does not take). The
+report keeps the JAX launcher's schema (``stages_s``, ``params.*``,
+``weights[]``, ``layers_compressed``, ``generate``); ``stages_s.total``
+covers every stage, save and generate included.
 
 Not ported yet (they raise): budget planning (``--plan``,
-``--budget-*``, ``--emit-plan``), the draft companion (``--emit-draft``),
-the save stage (``--ckpt-dir``) and the generate stage (``--new-tokens``).
+``--budget-*``, ``--emit-plan``) and the draft companion
+(``--emit-draft``).
 """
 from __future__ import annotations
 
@@ -31,7 +35,11 @@ from repro_torch.configs.base import CURConfig, ModelConfig
 from repro_torch.core import calibrate, compress_model
 from repro_torch.core.compress import rank_key
 from repro_torch.data.tokens import DataConfig, SyntheticLM
+from repro_torch.dist.checkpoint import CheckpointManager, save_tree_template
 from repro_torch.models import init_params
+from repro_torch.serve.engine import generate
+from repro_torch.serving import PagedConfig, SamplingParams, Server
+from repro_torch.serving.paged_cache import supports as paged_supports
 
 
 @dataclasses.dataclass
@@ -49,13 +57,35 @@ def _not_ported(args) -> None:
         args.budget_params, args.budget_bytes, args.budget_latency_ms))
     later = [("--plan", args.plan), ("--budget-*", budget),
              ("--emit-plan", args.emit_plan),
-             ("--emit-draft", args.emit_draft),
-             ("--ckpt-dir (save stage)", args.ckpt_dir),
-             ("--new-tokens (generate stage)", args.new_tokens)]
+             ("--emit-draft", args.emit_draft)]
     for flag, value in later:
         if value:
             raise NotImplementedError(
                 f"{flag} is not yet ported to repro_torch (ROADMAP Queue 1)")
+
+
+def _smoke_generate(params, cfg, *, n_requests: int, prompt_len: int,
+                    new_tokens: int, max_concurrency: int, seed: int,
+                    device):
+    """Drive the compressed model through the serving runtime on
+    ``device`` (paged continuous batching when the arch supports it, else
+    the static-batch engine). Returns (n_tokens, engine_name)."""
+    rng = np.random.RandomState(seed)
+    if paged_supports(cfg):
+        max_len = prompt_len + new_tokens
+        pc = PagedConfig.sized_for(max_len, max_concurrency)
+        server = Server(params, cfg, pc, max_concurrency=max_concurrency,
+                        device=device)
+        for i in range(n_requests):
+            prompt = rng.randint(0, cfg.vocab_size, size=prompt_len).tolist()
+            server.submit(prompt, new_tokens,
+                          sampling=SamplingParams(temperature=0.0, seed=i))
+        finished = server.drain()
+        return sum(len(r.out_tokens) for r in finished.values()), "serving"
+    prompts = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, size=(n_requests, prompt_len))).to(device)
+    out = generate(params, cfg, prompts, new_tokens)
+    return int(out.tokens.numel()), "legacy"
 
 
 class _Stages:
@@ -105,6 +135,19 @@ def cure_run(args) -> CureRun:
     dt = time.perf_counter() - t0
     stages.seconds["compress"] = dt - info.seconds_fold
     stages.seconds["fold"] = info.seconds_fold
+
+    def save():
+        out = args.ckpt_dir or os.path.join("results", "cure", args.arch)
+        CheckpointManager(out, keep_n=1).save(0, {"params": cparams})
+        save_tree_template(os.path.join(out, "template.json"),
+                           {"params": cparams})
+
+    stages.run("save", save)
+    n_tokens, engine = stages.run("generate", lambda: _smoke_generate(
+        cparams, ccfg_model, n_requests=args.n_requests,
+        prompt_len=args.prompt_len, new_tokens=args.new_tokens,
+        max_concurrency=args.max_concurrency, seed=args.seed,
+        device=device))
     stages.seconds["total"] = time.perf_counter() - t_total
 
     w = info.weights
@@ -154,6 +197,9 @@ def cure_run(args) -> CureRun:
             "bound_on": x.bound_on,
             "seconds": round(x.seconds, 5),
         } for x in w],
+        "generate": {"tokens": n_tokens, "engine": engine,
+                     "tok_per_s": round(n_tokens / max(
+                         stages.seconds["generate"], 1e-9), 1)},
     }
     return CureRun(report, cfg, params, ccfg_model, cparams)
 
@@ -190,13 +236,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--emit-plan", default=None, help="not yet ported")
     ap.add_argument("--emit-draft", action="store_true",
                     help="not yet ported")
-    ap.add_argument("--ckpt-dir", default=None,
-                    help="save stage: not yet ported")
-    ap.add_argument("--new-tokens", type=int, default=0,
-                    help="generate stage: not yet ported")
     ap.add_argument("--calib-batches", type=int, default=2)
     ap.add_argument("--calib-batch", type=int, default=2)
     ap.add_argument("--calib-len", type=int, default=64)
+    ap.add_argument("--n-requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--max-concurrency", type=int, default=4)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="default results/cure/<arch>")
     ap.add_argument("--report", default=None,
                     help="write the per-stage timing/params/error JSON here")
     ap.add_argument("--seed", type=int, default=0)
@@ -211,15 +259,22 @@ def main(argv=None):
     print(f"cured {args.arch}{' (smoke)' if args.smoke else ''} on "
           f"{report['device']}: {report['n_weights']} weights in layers "
           f"{report['layers_compressed']}")
-    print("  " + "  ".join(f"{k}={v:.3f}s" for k, v in s.items()))
-    print(f"  params: targeted {p['targeted_before']} -> deployed "
-          f"{p['after_deployed']}; saved {p['saved_deployed']} "
-          f"({p['reduction_pct_model']:.2f}% of the model)")
+    print("  " + "  ".join(f"{k}={s[k]:.3f}s" for k in
+                           ("init", "calibrate", "plan", "compress",
+                            "fold", "save", "generate", "total")))
+    print(f"  params: targeted {p['targeted_before']/1e3:.0f}k -> "
+          f"deployed {p['after_deployed']/1e3:.0f}k "
+          f"(folded {p['after_folded']/1e3:.0f}k / unfolded "
+          f"{p['after_unfolded']/1e3:.0f}k); "
+          f"model reduction {p['reduction_pct_model']:.2f}%")
     worst = max(report["weights"], key=lambda x: x["rel_fro_err"],
                 default=None)
     if worst:
         print(f"  worst rel fro err: {worst['rel_fro_err']:.4f} "
               f"(layer {worst['layer']} {worst['name']})")
+    g = report["generate"]
+    print(f"  generated {g['tokens']} tokens via {g['engine']} "
+          f"({g['tok_per_s']:.1f} tok/s)")
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:

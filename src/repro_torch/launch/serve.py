@@ -16,20 +16,27 @@ weights are the target's):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.1-8b \
       --smoke --draft self:2 --spec-k 3 --device cpu
 
+A draft checkpoint directory (``--draft DIR``: ``DIR/template.json`` and
+the newest valid step, e.g. the save stage of ``repro_torch.launch.cure``)
+is restored through ``repro_torch.dist.CheckpointManager``.
+
 ``--chaos PLAN.json`` injects a seeded ``repro_torch.testing.FaultPlan``
 and writes the fault event log to ``--obs-out/chaos_events.jsonl``.
 
-Not ported yet (they raise): the static-batch engine (``--legacy``, and
-non-attention archs), a draft checkpoint directory (``--draft DIR``, which
-needs the checkpoint manager) and profiler capture (``--prof``).
-``--paged-kernel`` and ``--prefill-backend`` set environment switches the
-port does not have: the kernels run for CUDA tensors, and CUR-KV prefill is
-rank-space.
+``--legacy`` runs the static-batch engine (``repro_torch.serve.engine``:
+dense KV cache, ``--batch`` SyntheticLM prompts of ``--prompt-len``
+tokens). ``--prof`` captures a ``torch.profiler`` trace of the serve loop
+under ``--obs-out/torchprof``. ``--paged-kernel auto|on|off`` and
+``--prefill-backend auto|fold|reconstruct`` are passed to the ``Server``
+as arguments: "off" is the caller's explicit choice of the plain paged
+attention on the pool's device, and "on" raises for a CPU pool (the
+kernel has no interpret mode).
 """
 import argparse
 import dataclasses
 import math
 import os
+import time
 
 import numpy as np
 
@@ -37,9 +44,12 @@ from repro_torch import obs, resolve_device
 from repro_torch.configs import ARCHS, get_config, get_smoke
 from repro_torch.configs.base import CURConfig
 from repro_torch.core import calibrate, compress_model
+from repro_torch.core.compress import unrolled_config
 from repro_torch.data.tokens import DataConfig, SyntheticLM
+from repro_torch.dist.checkpoint import CheckpointManager, load_tree_template
 from repro_torch.models import init_params
 from repro_torch.obs import loadgen, slo as slo_mod
+from repro_torch.serve.engine import generate
 from repro_torch.serving import PagedConfig, ResilienceConfig, Server
 from repro_torch.serving.paged_cache import supports as paged_supports
 from repro_torch.serving.speculative import early_exit_draft
@@ -90,23 +100,18 @@ def run_continuous(server: Server, workload, *, temperature: float = 0.0,
     return server.finished, stats
 
 
-def _not_ported(args) -> None:
-    if args.draft and not (args.draft == "self"
-                           or args.draft.startswith("self:")):
-        raise NotImplementedError(
-            "--draft DIR (a draft checkpoint) is not yet ported to "
-            "repro_torch: it needs the checkpoint manager, ROADMAP Queue 1 "
-            "item 8a; use --draft self or self:N")
-    later = [("--legacy (static-batch engine)", args.legacy),
-             ("--prof (profiler capture)", args.prof),
-             ("--paged-kernel (no environment switch in the port)",
-              args.paged_kernel),
-             ("--prefill-backend (no environment switch in the port)",
-              args.prefill_backend)]
-    for flag, value in later:
-        if value:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to repro_torch (ROADMAP Queue 1)")
+def load_draft(directory: str, cfg, device):
+    """Restore a draft checkpoint dir (``{"params": ...}`` at its newest
+    valid step, structured by ``DIR/template.json``) onto ``device``.
+    Returns (step, params, draft cfg). A CURed tree has per-layer groups
+    (``compress_model``'s layout), so its cfg is ``cfg`` unrolled; a tree
+    with ``cfg``'s groups keeps ``cfg``."""
+    template = load_tree_template(os.path.join(directory, "template.json"))
+    step, tree = CheckpointManager(directory).restore(template, device)
+    params = tree["params"]
+    if len(params["groups"]) != len(cfg.groups):
+        cfg = unrolled_config(cfg)
+    return step, params, cfg
 
 
 def parser() -> argparse.ArgumentParser:
@@ -114,9 +119,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="olmo-1b", choices=list(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
-                    help="calibration batch of --cur-layers")
+                    help="calibration batch of --cur-layers and the "
+                         "--legacy batch")
     ap.add_argument("--prompt-len", type=int, default=32,
-                    help="calibration length of --cur-layers")
+                    help="calibration and --legacy prompt length")
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--n-requests", type=int, default=12)
     ap.add_argument("--cur-layers", type=int, default=0,
@@ -128,17 +134,25 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--max-concurrency", type=int, default=8)
     ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--paged-kernel", default=None,
-                    choices=["auto", "on", "off"], help="not yet ported")
+    ap.add_argument("--paged-kernel", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="paged decode attention: the kernel for a CUDA "
+                         "pool (auto, on), or the plain version (off); on "
+                         "raises for a CPU pool")
     ap.add_argument("--prefill-backend", default=None,
                     choices=["auto", "fold", "reconstruct"],
-                    help="not yet ported")
-    ap.add_argument("--legacy", action="store_true", help="not yet ported")
+                    help="CUR-KV prompt attention: rank-space fold "
+                         "(auto, fold) or the full-head-dim reconstruct "
+                         "oracle")
+    ap.add_argument("--legacy", action="store_true",
+                    help="static-batch engine (dense KV cache) over "
+                         "--batch prompts of --prompt-len tokens")
     ap.add_argument("--draft", default=None,
                     help="speculative decoding: 'self' to self-draft with "
-                         "the target weights, or 'self:N' for an early-exit "
-                         "draft from the target's first N layers (a draft "
-                         "checkpoint dir is not yet ported)")
+                         "the target weights, 'self:N' for an early-exit "
+                         "draft from the target's first N layers, or a "
+                         "checkpoint dir with a template.json (e.g. "
+                         "cure's --ckpt-dir)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft tokens per speculative window")
     ap.add_argument("--draft-kv-rank", type=int, default=0,
@@ -192,26 +206,26 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", action="store_true",
                     help="record engine + per-request lifecycle spans "
                          "and write a Chrome/Perfetto trace.json")
-    ap.add_argument("--prof", action="store_true", help="not yet ported")
+    ap.add_argument("--prof", action="store_true",
+                    help="capture a torch.profiler trace of the serve "
+                         "loop under --obs-out/torchprof")
     ap.add_argument("--device", default="cuda")
     return ap
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    _not_ported(args)
     device = resolve_device(args.device)
     if args.obs:
         obs.enable()
     tracer = obs.Tracer(enabled=args.trace, process="repro_torch.serve")
+    prof = obs.TorchProfiler(
+        os.path.join(args.obs_out, "torchprof") if args.prof else None,
+        tracer=tracer)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if cfg.input_mode != "tokens":
         raise SystemExit(f"{args.arch} uses the embeddings stub")
-    if not paged_supports(cfg):
-        raise NotImplementedError(
-            f"{args.arch}: non-attention mixers need the static-batch "
-            f"engine, not yet ported to repro_torch (ROADMAP Queue 1)")
     params = init_params(0, cfg, device)
 
     if args.cur_layers:
@@ -226,6 +240,23 @@ def main(argv=None):
             calib)
         print(f"CUR-compressed {info.layers} "
               f"({info.params_saved/1e3:.0f}k params saved)")
+
+    if args.legacy or not paged_supports(cfg):
+        if not args.legacy:
+            print(f"{args.arch}: non-attention mixers -> legacy engine")
+        ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=args.prompt_len,
+                                    global_batch=args.batch), device)
+        prompts = ds.batch_at(0)["tokens"]
+        t0 = time.perf_counter()
+        out = generate(params, cfg, prompts, args.new_tokens,
+                       temperature=args.temperature)
+        toks = out.tokens.cpu()
+        dt = time.perf_counter() - t0
+        print(f"generated {toks.numel()} tokens in {dt:.2f}s "
+              f"({toks.numel()/dt:.1f} tok/s)")
+        print(toks[:2])
+        return out
 
     wspec = None
     if args.workload_trace:
@@ -260,11 +291,14 @@ def main(argv=None):
     draft_params, draft_cfg, draft_pc = None, None, None
     if args.draft == "self":
         draft_params = params
-    elif args.draft:
+    elif args.draft and args.draft.startswith("self:"):
         n = int(args.draft.split(":", 1)[1])
         draft_params, draft_cfg = early_exit_draft(params, cfg, n)
         print(f"early-exit self-draft: first {draft_cfg.n_layers} of "
               f"{cfg.n_layers} layers")
+    elif args.draft:
+        step, draft_params, draft_cfg = load_draft(args.draft, cfg, device)
+        print(f"draft checkpoint {args.draft} (step {step})")
     if draft_params is not None and args.draft_kv_rank:
         draft_pc = dataclasses.replace(pc, cur_kv=True,
                                        kv_rank=args.draft_kv_rank)
@@ -283,7 +317,8 @@ def main(argv=None):
                     spec_k=args.spec_k if draft_params is not None else 0,
                     obs=obs.default_registry() if args.obs else None,
                     tracer=tracer, resilience=res, chaos=chaos,
-                    device=device)
+                    device=device, paged_kernel=args.paged_kernel,
+                    prefill_backend=args.prefill_backend)
     print(f"serving {len(workload)} requests on {device} "
           f"(concurrency {args.max_concurrency}, block {args.block_size}, "
           f"pool {pc.n_blocks} blocks, cur_kv={args.cur_kv}, "
@@ -291,8 +326,9 @@ def main(argv=None):
           f"prefill={server._prefill_backend}"
           + (f", window={server.window}" if server.window else "")
           + (f", spec_k={server.spec_k}" if server.spec_k else "") + ")")
-    finished, stats = run_continuous(server, workload,
-                                     temperature=args.temperature)
+    with prof.scope("serve"):
+        finished, stats = run_continuous(server, workload,
+                                         temperature=args.temperature)
     if chaos is not None:
         # close any open fault windows (held pool squeezes) and finish
         # whatever the faults displaced, then refresh the report
@@ -339,6 +375,8 @@ def main(argv=None):
     print(f"request 0: {len(first.out_tokens)} tokens "
           f"{first.out_tokens[:8]}"
           f"{'...' if len(first.out_tokens) > 8 else ''}")
+    for path in prof.paths:
+        print(f"  profiler trace -> {path}")
     if chaos is not None and chaos.events:
         os.makedirs(args.obs_out, exist_ok=True)
         path = chaos.save_events(

@@ -1,5 +1,7 @@
 """Model code of the port (attention + MLP families)."""
 from repro_torch.models.model import (
-    forward, forward_hidden, init_params, loss_fn)
+    decode_step, forward, forward_hidden, init_cache, init_params, loss_fn,
+    prefill)
 
-__all__ = ["forward", "forward_hidden", "init_params", "loss_fn"]
+__all__ = ["decode_step", "forward", "forward_hidden", "init_cache",
+           "init_params", "loss_fn", "prefill"]

@@ -1,17 +1,27 @@
-"""GQA attention with RoPE: projections and full-sequence attention.
+"""GQA attention with RoPE: projections, full-sequence attention, and the
+dense KV cache (prefill fill and single-token decode).
 
-The attention math lives in the backend registry
+The full-sequence attention math lives in the backend registry
 (``repro_torch.attention``): :func:`_mix` resolves the ``mix`` variant —
 the CUDA flash kernel for CUDA tensors, else the small-S dense oracle, else
 the chunked/banded plain paths. ``DENSE_MAX`` and ``CHUNK`` stay module
 globals here, as in the JAX package, and ``_mix`` threads the live values
-through the registry on every call. Prefill and decode with caches wait for
-the serving slice.
+through the registry on every call.
+
+Decode (:func:`attn_decode`): one query token against a dense per-layer
+KV cache, in plain tensor ops (it runs outside any Pallas kernel in the
+JAX package too); local layers keep a ring buffer of ``window`` slots.
+Cache writes are in place; the functions still return the cache, so the
+signatures stay the JAX package's. (The paged serving runtime has its own
+pool-backed decode path: ``repro_torch.serving.runtime``.)
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.attention import registry as attn_registry
 from repro_torch.attention import xla as attn_xla
+from repro_torch.attention.xla import NEG_INF
 from repro_torch.models.layers import apply_rope, apply_w, rms_norm
 
 DENSE_MAX = attn_xla.DENSE_MAX   # dense softmax at/below this seq length
@@ -55,3 +65,80 @@ def attn_forward(x, p, cfg, positions, *, window: int = 0):
     o = _mix(qg, k, v, positions, window, scale, cfg)
     o = o.reshape(B, S, H * hd)
     return apply_w(o, p["wo"])
+
+
+def attn_prefill(x, p, cfg, positions, cache, *, window: int = 0):
+    """Forward + KV-cache fill. Returns (out, cache)."""
+    B, S, D = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    scale = hd ** -0.5
+    q, k, v = qkv_project(x, p, cfg, positions)
+    qg = _group_q(q, K)
+    o = _mix(qg, k, v, positions, window, scale, cfg)
+    o = o.reshape(B, S, H * hd)
+    cache = attn_fill_cache(cache, k, v, positions, window)
+    return apply_w(o, p["wo"]), cache
+
+
+def init_attn_cache(cfg, batch: int, max_len: int, window: int, dtype,
+                    device):
+    """KV cache for one attention layer on ``device``. Local layers: a ring
+    buffer of min(max_len, window) slots."""
+    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    L = min(max_len, window) if window > 0 else max_len
+    return {
+        "k": torch.zeros((batch, L, K, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, L, K, hd), dtype=dtype, device=device),
+        # absolute position of each slot (-1 = empty)
+        "pos": torch.full((batch, L), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attn_fill_cache(cache, k, v, positions, window: int):
+    """Write a full prefill's K/V into the cache in place (the last ``L``
+    tokens, at slot ``pos % L``, for local ring buffers)."""
+    L = cache["k"].shape[1]
+    S = k.shape[1]
+    if S <= L:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+        cache["pos"][:, :S] = positions
+        return cache
+    kt, vt, pt = k[:, -L:], v[:, -L:], positions[:, -L:]
+    slots = (pt % L).long()                            # (B, L)
+    b_idx = torch.arange(k.shape[0], device=k.device)[:, None]
+    cache["k"][b_idx, slots] = kt
+    cache["v"][b_idx, slots] = vt
+    cache["pos"][b_idx, slots] = pt.to(torch.int32)
+    return cache
+
+
+def attn_decode(x, p, cfg, cache, pos, *, window: int = 0):
+    """Single-token decode. x (B,1,D); pos (B,1) absolute positions. Writes
+    slot ``pos`` (``pos % L`` for a ring buffer) in place, then attends over
+    the cache: scores in the cache dtype, cast to f32 and scaled, masked to
+    the filled slots at or before ``pos`` (and inside the window), softmax,
+    probabilities cast back to the cache dtype for PV. Returns (out,
+    cache)."""
+    B = x.shape[0]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    scale = hd ** -0.5
+    q, k, v = qkv_project(x, p, cfg, pos)              # (B,1,.,hd)
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    L = ck.shape[1]
+    slot = ((pos[:, 0] % L) if window > 0 else pos[:, 0]).long()
+    b_idx = torch.arange(B, device=x.device)
+    ck[b_idx, slot] = k[:, 0]
+    cv[b_idx, slot] = v[:, 0]
+    cp[b_idx, slot] = pos[:, 0].to(torch.int32)
+    qg = _group_q(q, K)                                # (B,1,K,G,hd)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, ck).float() * scale
+    valid = (cp >= 0) & (cp <= pos[:, :1])
+    if window > 0:
+        valid &= cp > (pos[:, :1] - window)
+    s = torch.where(valid[:, None, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", pr.to(cv.dtype), cv)
+    o = o.reshape(B, 1, H * hd)
+    return apply_w(o, p["wo"]), cache

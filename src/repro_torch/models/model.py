@@ -1,10 +1,14 @@
-"""Model assembly: init / forward / loss over layer groups.
+"""Model assembly: init / forward / loss / prefill / decode over layer
+groups.
 
 A model's layers are organized as ``cfg.groups = [(pattern, repeats), ...]``.
 Parameters for a group are a list of per-pattern-position param dicts whose
 leaves carry a leading ``repeats`` axis (the JAX package's layout, so the
 bridge maps one tree onto the other). The JAX ``lax.scan`` over repeats is
-a Python loop over views here.
+a Python loop over views here. The dense KV cache of :func:`init_cache`
+has the same layout (per group, leaves stacked on a leading ``repeats``
+axis); :func:`prefill` and :func:`decode_step` write it in place through
+per-layer views and return it.
 
 This slice ports the attention (ATTN / ATTN_LOCAL) + MLP families; MoE and
 Mamba blocks raise ``NotImplementedError``.
@@ -222,3 +226,104 @@ def loss_fn(params, cfg, batch):
         return -ll.mean()
     mask = mask.float()
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def _init_block_cache(spec, cfg, batch, max_len, dtype, device):
+    if spec.mixer in (ATTN, ATTN_LOCAL):
+        win = cfg.window if spec.mixer == ATTN_LOCAL else 0
+        return attn.init_attn_cache(cfg, batch, max_len, win, dtype, device)
+    raise _not_ported(spec.mixer)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """Dense KV cache on ``device`` for ``batch`` sequences of up to
+    ``max_len`` tokens: per group, a list of per-pattern-position dicts
+    whose leaves carry a leading ``repeats`` axis (the JAX layout)."""
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    cache = {"groups": []}
+    for pattern, reps in cfg.groups:
+        group = []
+        for spec in pattern:
+            one = _init_block_cache(spec, cfg, batch, max_len, dtype, device)
+            group.append(tree_map(
+                lambda a: a[None].repeat((reps,) + (1,) * a.dim()), one))
+        cache["groups"].append(group)
+    return cache
+
+
+def _block_prefill(x, p, c, spec, cfg, positions):
+    h = norm(x, p.get("norm1"), cfg)
+    if spec.mixer in (ATTN, ATTN_LOCAL):
+        win = cfg.window if spec.mixer == ATTN_LOCAL else 0
+        a, c = attn.attn_prefill(h, p, cfg, positions, c, window=win)
+    else:
+        raise _not_ported(spec.mixer)
+    x = x + a
+    if spec.mlp == MLP:
+        x = x + mlp_forward(norm(x, p.get("norm2"), cfg), p, cfg)
+    else:
+        raise _not_ported(spec.mlp)
+    return x, c
+
+
+def _block_decode(x, p, c, spec, cfg, pos):
+    h = norm(x, p.get("norm1"), cfg)
+    if spec.mixer in (ATTN, ATTN_LOCAL):
+        win = cfg.window if spec.mixer == ATTN_LOCAL else 0
+        a, c = attn.attn_decode(h, p, cfg, c, pos, window=win)
+    else:
+        raise _not_ported(spec.mixer)
+    x = x + a
+    if spec.mlp == MLP:
+        x = x + mlp_forward(norm(x, p.get("norm2"), cfg), p, cfg)
+    else:
+        raise _not_ported(spec.mlp)
+    return x, c
+
+
+def _apply_groups_cached(x, params, cache, cfg, block_fn):
+    """The prefill/decode layer loop: a Python loop over every group's
+    repeats (the JAX package's ``lax.scan``), each layer's params and
+    cache taken as views of the stacked leaves, so ``block_fn``'s in-place
+    cache writes land in ``cache``. Returns (x, cache)."""
+    for gi, (pattern, reps) in enumerate(cfg.groups):
+        gp, gc = params["groups"][gi], cache["groups"][gi]
+        for r in range(reps):
+            for pi, spec in enumerate(pattern):
+                lp = tree_map(lambda a, r=r: a[r], gp[pi])
+                lc = tree_map(lambda a, r=r: a[r], gc[pi])
+                x, _ = block_fn(x, lp, lc, spec, cfg)
+    return x, cache
+
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, batch, cache):
+    """Process the prompt; returns (last-position logits (B, V), cache)."""
+    x = _embed(params, cfg, batch)
+    positions = _positions(x)
+
+    def block_fn(xc, p, c, spec, cfg):
+        return _block_prefill(xc, p, c, spec, cfg, positions)
+
+    x, cache = _apply_groups_cached(x, params, cache, cfg, block_fn)
+    x = norm(x, params.get("final_norm"), cfg)
+    return _unembed(params, cfg, x[:, -1:, :])[:, 0, :], cache
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, batch, cache, pos):
+    """One decode step. batch: tokens (B, 1); pos (B, 1) absolute
+    positions. Returns (logits (B, V), cache)."""
+    x = _embed(params, cfg, batch)
+
+    def block_fn(xc, p, c, spec, cfg):
+        return _block_decode(xc, p, c, spec, cfg, pos)
+
+    x, cache = _apply_groups_cached(x, params, cache, cfg, block_fn)
+    x = norm(x, params.get("final_norm"), cfg)
+    return _unembed(params, cfg, x)[:, 0, :], cache

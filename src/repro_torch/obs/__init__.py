@@ -8,8 +8,8 @@ nothing of ``repro``).
   export     snapshot dict, Prometheus text, JSONL event log, write_all
   loadgen    seeded synthetic workloads + the open-loop load runner
   slo        SLO spec + evaluation: attainment, goodput, decomposition
-
-``repro.obs.jaxprof`` (jax.profiler capture) has no counterpart yet.
+  torchprof  scoped torch.profiler capture + device memory snapshots
+             (the counterpart of ``repro.obs.jaxprof``)
 """
 from repro_torch.obs import loadgen, slo
 from repro_torch.obs.export import (
@@ -20,14 +20,16 @@ from repro_torch.obs.metrics import (
     default_registry, disable, enable, enabled, gauge, histogram,
     log_buckets)
 from repro_torch.obs.slo import SLOMonitor, SLOSpec
+from repro_torch.obs.torchprof import TorchProfiler, device_memory_snapshot
 from repro_torch.obs.trace import (
     ENGINE_TRACK, NULL_CTX, NULL_TRACER, Tracer, request_track)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "LengthDist", "Registry",
-    "SLOMonitor", "SLOSpec", "Tracer", "JsonlLog", "WorkloadSpec",
-    "DEFAULT_BUCKETS", "ENGINE_TRACK", "NULL", "NULL_CTX", "NULL_TRACER",
-    "counter", "default_registry", "disable", "enable", "enabled", "gauge",
-    "histogram", "loadgen", "log_buckets", "request_track", "slo",
-    "snapshot", "to_prometheus", "write_all",
+    "SLOMonitor", "SLOSpec", "TorchProfiler", "Tracer", "JsonlLog",
+    "WorkloadSpec", "DEFAULT_BUCKETS", "ENGINE_TRACK", "NULL", "NULL_CTX",
+    "NULL_TRACER", "counter", "default_registry", "device_memory_snapshot",
+    "disable", "enable", "enabled", "gauge", "histogram", "loadgen",
+    "log_buckets", "request_track", "slo", "snapshot", "to_prometheus",
+    "write_all",
 ]

@@ -43,12 +43,13 @@ from repro_torch.serving.sampling import (
 
 
 def _paged_attn(qg, k_pool, v_pool, table, ctx_len, uk, uv, scale,
-                window: int, q_span: int = 1):
+                window: int, q_span: int = 1, paged_kernel: str = "auto"):
     """Rank-space paged attention for one layer's queries.
 
     qg (B, K, G, hd) grouped queries; pools (n_blocks, bs, K, r); table
-    and ctx_len on the pools' device. Returns (B, K, G, hd)."""
-    be = resolve_paged(k_pool.is_cuda)
+    and ctx_len on the pools' device; ``paged_kernel`` as in
+    ``resolve_paged``. Returns (B, K, G, hd)."""
+    be = resolve_paged(k_pool.is_cuda, paged_kernel)
     qf = fold_q(qg, uk, scale)                    # (B, K, G, r)
     o_r = be.fn(qf, k_pool, v_pool, table, ctx_len, window=window,
                 q_span=q_span)
@@ -56,11 +57,11 @@ def _paged_attn(qg, k_pool, v_pool, table, ctx_len, uk, uv, scale,
 
 
 def gathered_bytes_per_step(cfg: ModelConfig, pc: pcache.PagedConfig,
-                            batch: int, on_cuda: bool) -> int:
+                            batch: int, on_kernel: bool) -> int:
     """Device bytes the decode step materializes out of the pool per
-    engine step: 0 on the kernel path (a pool on the card), else k+v
-    gathers of the full table window for every attention layer."""
-    if on_cuda:
+    engine step: 0 on the kernel path (``paged_cuda``), else k+v gathers
+    of the full table window for every attention layer."""
+    if on_kernel:
         return 0
     L = pcache._attn_layers(cfg)
     r = pc.rank(cfg.resolved_head_dim)
@@ -159,7 +160,8 @@ def paged_prefill(params, cfg: ModelConfig, pc: pcache.PagedConfig,
 
 def paged_decode(params, cfg: ModelConfig, pc: pcache.PagedConfig,
                  tokens: torch.Tensor, cache: dict, table: torch.Tensor,
-                 ctx_len: torch.Tensor, active: torch.Tensor):
+                 ctx_len: torch.Tensor, active: torch.Tensor,
+                 paged_kernel: str = "auto"):
     """One decode step for every active slot, writing the pool in place:
     :func:`paged_verify` over one position.
 
@@ -167,7 +169,7 @@ def paged_decode(params, cfg: ModelConfig, pc: pcache.PagedConfig,
     in cache (the new token is written at that position); active (B,)
     bool. Returns (logits (B, V), cache)."""
     logits, cache = paged_verify(params, cfg, pc, tokens, cache, table,
-                                 ctx_len, active)
+                                 ctx_len, active, paged_kernel)
     return logits[:, 0], cache
 
 
@@ -178,7 +180,8 @@ def paged_decode(params, cfg: ModelConfig, pc: pcache.PagedConfig,
 @torch.no_grad()
 def paged_verify(params, cfg: ModelConfig, pc: pcache.PagedConfig,
                  tokens: torch.Tensor, cache: dict, table: torch.Tensor,
-                 ctx_len: torch.Tensor, active: torch.Tensor):
+                 ctx_len: torch.Tensor, active: torch.Tensor,
+                 paged_kernel: str = "auto"):
     """One forward over ``S`` consecutive positions per slot -- the
     speculative verify step.
 
@@ -191,7 +194,8 @@ def paged_verify(params, cfg: ModelConfig, pc: pcache.PagedConfig,
     kv head's ``S * G`` query rows sits at position ``ctx + s``), so row
     ``j`` equals the ``j``-th of S sequential :func:`paged_decode` calls.
     Returns (logits (B, S, V), cache); ``logits[:, j]`` is the target
-    distribution of the token after position ``ctx + j``."""
+    distribution of the token after position ``ctx + j``. ``paged_kernel``
+    picks the attention backend (``resolve_paged``)."""
     check_supported(cfg)
     dev = _device_of(cache)
     x = _embed(params, cfg, {"tokens": _to(tokens.long(), dev)})
@@ -217,7 +221,7 @@ def paged_verify(params, cfg: ModelConfig, pc: pcache.PagedConfig,
         G = qg.shape[3]
         qflat = qg.permute(0, 2, 1, 3, 4).reshape(B, K, S * G, -1)
         o = _paged_attn(qflat, pool_k, pool_v, table_d, ctx_d, uk, uv,
-                        scale, win, q_span=S)
+                        scale, win, q_span=S, paged_kernel=paged_kernel)
         o = o.reshape(B, K, S, G, -1).permute(0, 2, 1, 3, 4)
         x = x + apply_w(o.reshape(B, S, -1), p["wo"])
         x = _channel_mix(x, p, spec, cfg)
@@ -233,7 +237,7 @@ def paged_verify(params, cfg: ModelConfig, pc: pcache.PagedConfig,
 def paged_decode_scan(params, cfg: ModelConfig, pc: pcache.PagedConfig,
                       tokens, cache, table, ctx, active, budgets,
                       sampling, gen_starts, n_steps: int,
-                      greedy: bool = False):
+                      greedy: bool = False, paged_kernel: str = "auto"):
     """``n_steps`` decode+sample iterations, a host loop over
     :func:`paged_decode`. Sampled tokens feed the next step on the device;
     the caller reads the window's tokens once, at its end. Rows whose
@@ -254,7 +258,7 @@ def paged_decode_scan(params, cfg: ModelConfig, pc: pcache.PagedConfig,
     for i in range(n_steps):
         live = active & (gen_starts + i < budgets)
         logits, cache = paged_decode(params, cfg, pc, toks, cache, table,
-                                     ctx, live)
+                                     ctx, live, paged_kernel)
         if greedy:
             s_toks, s_lps = greedy_tokens(logits)
         else:

@@ -12,6 +12,13 @@ window (draft k tokens, verify them in one target forward, commit the
 accepted prefix over forked blocks); with a ``ChaosEngine`` the server
 takes seeded faults at its hooks and retries the step they abort.
 
+``paged_kernel`` ("auto" | "on" | "off", ``runtime.resolve_paged``) and
+``prefill_backend`` ("auto" | "fold" | "reconstruct",
+``runtime.resolve_prefill``) are the caller's explicit choice of decode
+and CUR-KV prompt attention: the serve CLI's ``--paged-kernel`` and
+``--prefill-backend`` arrive here as arguments, not through the
+environment.
+
 PyTorch runs eagerly, so there is no compiled-step cache; the pow-2
 prefill buckets stay, since they keep the flash kernel's sequence lengths
 few.
@@ -80,9 +87,12 @@ class Server:
                  obs: Optional[Registry] = None,
                  tracer: Optional[Tracer] = None,
                  resilience: Optional[ResilienceConfig] = None,
-                 chaos=None, device=None):
+                 chaos=None, device=None, paged_kernel: str = "auto",
+                 prefill_backend: Optional[str] = None):
         runtime.check_supported(cfg)
         self.device = resolve_device(device)
+        self.paged_kernel = paged_kernel
+        runtime.resolve_paged(self.device.type == "cuda", paged_kernel)
         self.params = params
         self.cfg = cfg
         self.pc = pc or pcache.PagedConfig()
@@ -119,7 +129,8 @@ class Server:
         if self.pc.cur_kv:
             self.cache = runtime.calibrate_kv(
                 params, cfg, self.pc, self.cache, calib_tokens)
-        self._prefill_backend = runtime.resolve_prefill().name
+        self._prefill_backend = runtime.resolve_prefill(
+            prefill_backend).name
         self.max_decode_window = max_decode_window
 
         # --- speculative decoding (draft-k / verify-1) ----------------
@@ -430,13 +441,14 @@ class Server:
         tokens, lengths = torch.from_numpy(tokens), torch.from_numpy(lengths)
         logits, self.cache = runtime.paged_prefill(
             self.params, self.cfg, self.pc, tokens, lengths, self.cache,
-            table)
+            table, backend=self._prefill_backend)
         if self.spec_k:
             # the draft shares the block table, so its pool must hold the
             # same prefix KV the target's does
             _, self.draft_cache = runtime.paged_prefill(
                 self.draft_params, self.draft_cfg, self.draft_pc, tokens,
-                lengths, self.draft_cache, table)
+                lengths, self.draft_cache, table,
+                backend=self._prefill_backend)
         toks, lps = self._sample_batch(
             logits, lambda s: len(s.req.out_tokens))
         t_now = time.perf_counter()
@@ -494,7 +506,7 @@ class Server:
         active = torch.from_numpy(sched.active_mask())
         logits, self.cache = runtime.paged_decode(
             self.params, self.cfg, self.pc, next_toks, self.cache, table,
-            ctx, active)
+            ctx, active, self.paged_kernel)
         if self.spec_k:
             self._draft_sync(next_toks, table, ctx, active)
         toks, lps = self._sample_batch(
@@ -517,7 +529,7 @@ class Server:
         decaying after every fallback."""
         _, self.draft_cache = runtime.paged_verify(
             self.draft_params, self.draft_cfg, self.draft_pc, tokens,
-            self.draft_cache, table, ctx, active)
+            self.draft_cache, table, ctx, active, self.paged_kernel)
 
     def _run_spec_decode(self) -> bool:
         """One draft-k/verify-1 window over all running slots. Returns
@@ -561,14 +573,15 @@ class Server:
         d_toks, d_probs, self.draft_cache = speculative.draft_tokens(
             self.draft_params, self.draft_cfg, self.draft_pc,
             torch.from_numpy(next_toks), self.draft_cache, table, ctx,
-            active, sampling, gen_starts, k, greedy=greedy)
+            active, sampling, gen_starts, k, greedy=greedy,
+            paged_kernel=self.paged_kernel)
         m1 = _mark(self.device)
         ver_in = torch.cat([torch.from_numpy(next_toks).to(
             d_toks.device, non_blocking=True), d_toks], dim=1)
         emitted, n_emit, lps, self.cache = speculative.verify_tokens(
             self.params, self.cfg, self.pc, ver_in, d_toks, d_probs,
             self.cache, table, ctx, active, sampling, gen_starts,
-            greedy=greedy)
+            greedy=greedy, paged_kernel=self.paged_kernel)
         m2 = _mark(self.device)
         emitted = emitted.cpu().numpy()             # the window's one sync
         n_emit = n_emit.cpu().numpy()
@@ -650,7 +663,7 @@ class Server:
             self.params, self.cfg, self.pc, torch.from_numpy(next_toks),
             self.cache, table, ctx, active, torch.from_numpy(budgets),
             sampling, torch.from_numpy(gen_starts), n_steps=k,
-            greedy=greedy)
+            greedy=greedy, paged_kernel=self.paged_kernel)
         toks_seq = toks_seq.cpu().numpy()          # the window's one sync
         lps_seq = lps_seq.float().cpu().numpy()
         if self.spec_k:
@@ -828,6 +841,7 @@ class Server:
                           hist("repro_serving_queue_depth"))
         qw = hist("repro_serving_queue_wait_s")
         on_cuda = self.cache["k"].is_cuda
+        paged = runtime.resolve_paged(on_cuda, self.paged_kernel).name
         return {
             "completed": int(
                 val("repro_serving_requests_completed_total")),
@@ -864,9 +878,9 @@ class Server:
                              if decode_t > 0 else 0.0),
             "gathered_bytes_per_step": runtime.gathered_bytes_per_step(
                 self.cfg, self.pc, self.scheduler.max_concurrency,
-                on_cuda),
+                paged == "paged_cuda"),
             "attn_backends": {
-                "paged_decode": runtime.resolve_paged(on_cuda).name,
+                "paged_decode": paged,
                 "paged_prefill": self._prefill_backend,
             },
             "prefill_backend": self._prefill_backend,

@@ -121,7 +121,8 @@ def _on(sampling, dev):
 
 @torch.no_grad()
 def draft_tokens(params, cfg, pc, tokens, cache, table, ctx, active,
-                 sampling, gen_starts, k: int, greedy: bool = False):
+                 sampling, gen_starts, k: int, greedy: bool = False,
+                 paged_kernel: str = "auto"):
     """k autoregressive draft steps through the forked tables: a host loop
     of :func:`runtime.paged_decode`, each step's tokens feeding the next on
     the device.
@@ -142,7 +143,8 @@ def draft_tokens(params, cfg, pc, tokens, cache, table, ctx, active,
     out_t, out_p = [], []
     for j in range(k):
         logits, cache = runtime.paged_decode(params, cfg, pc, toks, cache,
-                                             table, ctx, active)
+                                             table, ctx, active,
+                                             paged_kernel)
         lg = logits.float()
         if greedy:
             s_toks = torch.argmax(lg, dim=-1)
@@ -161,14 +163,15 @@ def draft_tokens(params, cfg, pc, tokens, cache, table, ctx, active,
     # is partly accepted the write lands past the committed context (dead,
     # overwritten later).
     _, cache = runtime.paged_decode(params, cfg, pc, toks, cache, table,
-                                    ctx, active)
+                                    ctx, active, paged_kernel)
     d_probs = None if greedy else torch.stack(out_p, dim=1)
     return torch.stack(out_t, dim=1), d_probs, cache
 
 
 @torch.no_grad()
 def verify_tokens(params, cfg, pc, tokens, d_toks, d_probs, cache, table,
-                  ctx, active, sampling, gen_starts, greedy: bool = False):
+                  ctx, active, sampling, gen_starts, greedy: bool = False,
+                  paged_kernel: str = "auto"):
     """Single-forward verification of a drafted window.
 
     tokens (B, k+1): ``[next_token, d_1 .. d_k]``, the verify forward's
@@ -181,7 +184,7 @@ def verify_tokens(params, cfg, pc, tokens, d_toks, d_probs, cache, table,
     B, S = tokens.shape
     k = S - 1
     logits, cache = runtime.paged_verify(params, cfg, pc, tokens, cache,
-                                         table, ctx, active)
+                                         table, ctx, active, paged_kernel)
     lg = logits.float()                                    # (B, k+1, V)
     dev = lg.device
     logp = torch.log_softmax(lg, dim=-1)

@@ -7,9 +7,12 @@ pure function of ``(seed, fault_index, step_index)``, so the same plan
 against the same request stream injects the identical fault sequence,
 and a failing chaos run replays bit-for-bit from its JSON spec.
 
-A copy of the JAX package's chaos module (numpy only; the port imports
-nothing of that package): the same plans, the same activation draws and
-the same event log, so a plan replays the same faults in either package.
+A copy of the JAX package's chaos module (the port imports nothing of
+that package): the same plans, the same activation draws and the same
+event log, so a plan replays the same faults in either package.
+:func:`corrupt_checkpoint` finds a step's files through the port's
+checkpoint manager (``repro_torch.dist.checkpoint``), so the manager it
+corrupts is the one that must reject the step.
 
 Fault classes and where their hooks live:
 
@@ -46,6 +49,8 @@ import time
 from typing import List, Optional
 
 import numpy as np
+
+from repro_torch.dist.checkpoint import step_dirname
 
 FAULT_KINDS = ("latency_spike", "transient_error", "pool_squeeze",
                "queue_storm", "checkpoint_corruption")
@@ -265,19 +270,13 @@ class ChaosEngine:
 # checkpoint corruption (offline fault)
 # ---------------------------------------------------------------------------
 
-def _step_dirname(step: int) -> str:
-    """A checkpoint step's directory name (the JAX package's checkpoint
-    layout)."""
-    return f"step_{step:08d}"
-
-
 def corrupt_checkpoint(directory: str, step: int, mode: str = "bitflip",
                        leaf: int = 0, seed: int = 0) -> str:
     """Corrupt one leaf file of checkpoint ``step`` under ``directory``:
     ``bitflip`` XORs one seeded byte, ``truncate`` drops the second
     half of the file. Returns the corrupted path. The crc32 manifest
     check must reject the checkpoint afterwards — that is the test."""
-    path = os.path.join(directory, _step_dirname(step),
+    path = os.path.join(directory, step_dirname(step),
                         f"leaf_{leaf:05d}.npy")
     size = os.path.getsize(path)
     if mode == "bitflip":

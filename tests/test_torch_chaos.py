@@ -120,6 +120,31 @@ def test_corrupt_checkpoint_changes_the_leaf(tmp_path, mode):
         corrupt_checkpoint(str(tmp_path), 3, mode="melt")
 
 
+@pytest.mark.parametrize("mode", ["bitflip", "truncate"])
+def test_corrupt_checkpoint_on_a_real_manager_falls_back(tmp_path, mode):
+    """The chaos fault against the port's own checkpoint manager: a
+    corrupted newest step fails its crc32 and restore falls back to the
+    previous one, past every corrupted step (tests/test_checkpoint.py's
+    cases in the JAX package)."""
+    import torch
+    from repro_torch.dist import CheckpointManager
+    mgr = CheckpointManager(str(tmp_path), keep_n=3)
+
+    def tree(s):
+        return {"w": torch.full((4, 8), float(s)),
+                "step": torch.tensor(s, dtype=torch.int32)}
+
+    for s in (1, 2, 3):
+        mgr.save(s, tree(s))
+    corrupt_checkpoint(str(tmp_path), 3, mode=mode, seed=4)
+    assert mgr.latest_valid_step() == 2
+    corrupt_checkpoint(str(tmp_path), 2, mode="bitflip")
+    assert mgr.latest_valid_step() == 1
+    step, restored = mgr.restore(tree(0), device="cpu")
+    assert step == 1 and int(restored["step"]) == 1
+    assert bool((restored["w"] == 1.0).all())
+
+
 # ---------------------------------------------------------------------------
 # fault classes against the port's Server
 # ---------------------------------------------------------------------------

@@ -3,6 +3,8 @@
 numpy calibration batches in the JAX package and the port. Integer outputs
 (selected layers, every weight's row and column indices) must be equal;
 floats are held to 2e-5 scale-relative."""
+import contextlib
+import io
 import math
 from types import SimpleNamespace
 
@@ -21,6 +23,7 @@ from repro.models import init_params as jax_init_params
 from repro.train.evaluate import perplexity as jax_perplexity
 from repro.train.evaluate import token_accuracy as jax_token_accuracy
 from repro_torch.configs.base import CURConfig
+from repro_torch.dist.checkpoint import tree_flatten
 from repro_torch.core import calibrate, compress_model
 from repro_torch.launch import cure as tcure
 from repro_torch.models import forward
@@ -171,31 +174,70 @@ def test_compress_leaves_original_params_untouched(cured):
                                    jcfg.n_heads * jcfg.resolved_head_dim)
 
 
-def _cure_args(**over):
+_CURE_ARGV = ["--arch", "llama3.1-8b", "--smoke", "--layers", "1",
+              "--r-max", "8", "--calib-batches", "1", "--calib-len", "16"]
+
+
+def _cure_args(ckpt_dir, **over):
     args = tcure.parser().parse_args(
-        ["--arch", "llama3.1-8b", "--smoke", "--layers", "1", "--r-max",
-         "8", "--calib-batches", "1", "--calib-len", "16", "--device",
-         "cpu"])
+        _CURE_ARGV + ["--device", "cpu", "--ckpt-dir", str(ckpt_dir)])
     for k, v in over.items():
         setattr(args, k, v)
     return args
 
 
-def test_cure_launcher_report_schema():
-    report = tcure.cure(_cure_args())
+def test_cure_launcher_report_schema(tmp_path):
+    report = tcure.cure(_cure_args(tmp_path))
     assert report["device"] == "cpu"
     assert report["layers_compressed"] == [1]
-    assert set(report["stages_s"]) == {"init", "calibrate", "plan",
-                                       "compress", "fold", "total"}
+    assert list(report["stages_s"]) == ["init", "calibrate", "plan",
+                                        "compress", "fold", "save",
+                                        "generate", "total"]
     assert report["params"]["saved_deployed"] > 0
     assert report["n_weights"] == len(report["weights"]) == 3
     assert {"layer", "name", "shape", "rank", "rel_fro_err", "bound",
             "bound_on", "seconds"} <= set(report["weights"][0])
+    assert report["generate"]["tokens"] == 4 * 8
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("plan", "p.json"), ("budget_params", 0.5), ("emit_draft", True),
-    ("ckpt_dir", "ck"), ("new_tokens", 4)])
-def test_cure_launcher_unported_stages_raise(flag, value):
+    ("plan", "p.json"), ("budget_params", 0.5), ("emit_draft", True)])
+def test_cure_launcher_unported_stages_raise(tmp_path, flag, value):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcure.cure(_cure_args(**{flag: value}))
+        tcure.cure(_cure_args(tmp_path, **{flag: value}))
+
+
+def test_cure_launcher_ckpt_dir_saves_a_restorable_checkpoint(tmp_path):
+    """--ckpt-dir: step 0 of {"params": the CURed tree} with keep-N 1 and
+    its template.json; it restores bit-identical through the template, and
+    the report has the JAX launcher's keys on the same arguments (the
+    port adds ``n_layers`` and ``device``; the JAX CLI takes olmo-1b, not
+    llama3.1-8b)."""
+    from repro.launch import cure as jax_cure
+    from repro_torch.dist import CheckpointManager, load_tree_template
+    argv = ["--arch", "olmo-1b"] + _CURE_ARGV[2:]
+    run = tcure.cure_run(tcure.parser().parse_args(
+        argv + ["--device", "cpu", "--ckpt-dir", str(tmp_path / "port")]))
+    mgr = CheckpointManager(str(tmp_path / "port"))
+    assert mgr.all_steps() == [0] and mgr.latest_valid_step() == 0
+    tmpl = load_tree_template(str(tmp_path / "port" / "template.json"))
+    step, tree = mgr.restore(tmpl, device="cpu")
+    mine = tree_flatten(tree["params"])
+    ref = tree_flatten(run.cured_params)
+    assert step == 0 and len(mine) == len(ref) > 0
+    assert all(torch.equal(a, b) for a, b in zip(mine, ref))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        jrep = jax_cure.main(argv + ["--ckpt-dir", str(tmp_path / "jax")])
+    rep = run.report
+    assert set(rep) - {"n_layers", "device"} == set(jrep)
+    assert list(rep["stages_s"]) == list(jrep["stages_s"])
+    assert set(rep["generate"]) == set(jrep["generate"])
+    assert rep["generate"]["tokens"] == jrep["generate"]["tokens"]
+
+
+def test_cure_launcher_new_tokens_generates_through_serving(tmp_path):
+    report = tcure.cure(_cure_args(tmp_path, new_tokens=4))
+    assert report["generate"]["tokens"] == 16
+    assert report["generate"]["engine"] == "serving"
+    assert report["generate"]["tok_per_s"] > 0

@@ -447,3 +447,88 @@ def test_server_spec_on_card_matches_spec_off(gen, cur_kv):
             assert pa.launches - before >= st["n_spec_windows"] * 2 * \
                 cfg.n_layers
     assert outs["cuda", 3] == outs["cuda", 0] == outs["cpu", 3]
+
+
+# ---------------------------------------------------------------------------
+# the static-batch engine and the checkpoint manager on the card
+# ---------------------------------------------------------------------------
+
+def test_engine_on_card_matches_cpu(gen):
+    """``generate`` on a CURed f32 REPRO model: the card's greedy tokens
+    equal the CPU's and its logprobs agree within 2e-5; the prefill (M =
+    4 x 16 rows) runs flash_attention and cur_matmul."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_repro
+    from repro_torch.configs.base import CURConfig
+    from repro_torch.core import calibrate, compress_model
+    from repro_torch.models import init_params
+    from repro_torch.serve import generate
+    cfg = get_repro()
+    params = init_params(0, cfg, "cpu")
+    g = torch.Generator().manual_seed(2)
+    calib = [{"tokens": torch.randint(0, cfg.vocab_size, (2, 64),
+                                      generator=g)}]
+    cp, ccfg, _ = compress_model(params, cfg, CURConfig(
+        r_max=32, n_compress_layers=2, svd="exact", fold_u=True), calibrate(
+            params, cfg, calib))
+    prompts = torch.randint(0, cfg.vocab_size, (4, 16), generator=g)
+    ref = generate(cp, ccfg, prompts, 8)
+    c0, f0 = cm.launches, fa.launches
+    out = generate(tree_map(lambda t: t.cuda(), cp), ccfg, prompts.cuda(), 8)
+    assert cm.launches > c0 and fa.launches > f0
+    assert torch.equal(out.tokens.cpu(), ref.tokens)
+    assert rel_err(out.logprobs.cpu(), ref.logprobs) < _TOL[torch.float32]
+
+
+def test_server_paged_kernel_off_on_card_matches_kernel(gen):
+    """``paged_kernel="off"`` is the caller's explicit choice of the plain
+    paged attention on the card: no kernel launch, the kernel's tokens."""
+    import numpy as np
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.launch.serve import make_workload
+    from repro_torch.models import init_params
+    from repro_torch.serving import PagedConfig, Server
+    cfg = get_smoke("llama3.1-8b")
+    params = tree_map(lambda t: t.cuda(), init_params(0, cfg, "cpu"))
+    wl = make_workload(6, cfg.vocab_size, max_new=10)
+    calib = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 64))
+    pc = PagedConfig.sized_for(60, 4, block_size=8)
+    outs, launched = {}, {}
+    for mode in ("auto", "off"):
+        srv = Server(params, cfg, pc, max_concurrency=4, calib_tokens=calib,
+                     device="cuda", paged_kernel=mode)
+        before = pa.launches
+        for w in wl:
+            srv.submit(w["prompt"], w["max_new_tokens"])
+        srv.drain()
+        outs[mode] = {k: r.out_tokens for k, r in srv.finished.items()}
+        launched[mode] = pa.launches - before
+        assert srv.stats()["attn_backends"]["paged_decode"] == (
+            "paged_cuda" if mode == "auto" else "paged_ref")
+    assert outs["off"] == outs["auto"]
+    assert launched["auto"] > 0 and launched["off"] == 0
+
+
+def test_checkpoint_roundtrip_on_card(gen, tmp_path):
+    """A bf16 / f32 / int32 tree saved from the card restores on the card
+    (the default device) and on the CPU bit-identical."""
+    from repro_torch.dist import (
+        CheckpointManager, load_tree_template, save_tree_template)
+    tree = {"w": _randn(gen, (64, 48), torch.bfloat16),
+            "groups": [{"CU": _randn(gen, (48, 8), torch.float32)}],
+            "step": torch.tensor(3, dtype=torch.int32, device="cuda")}
+    mgr = CheckpointManager(str(tmp_path), keep_n=1)
+    mgr.save(3, tree, blocking=False)
+    mgr.wait()
+    save_tree_template(str(tmp_path / "template.json"), tree)
+    tmpl = load_tree_template(str(tmp_path / "template.json"))
+    for dev in ("cuda", "cpu"):
+        step, back = mgr.restore(tmpl, device=None if dev == "cuda"
+                                 else "cpu")
+        assert step == 3 and back["w"].device.type == dev
+        assert torch.equal(back["w"].cpu(), tree["w"].cpu())
+        assert torch.equal(back["groups"][0]["CU"].cpu(),
+                           tree["groups"][0]["CU"].cpu())
+        assert back["step"].dtype == torch.int32 and int(back["step"]) == 3

@@ -38,7 +38,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "serving.resilience", "serving.speculative",
                  "testing.chaos", "attention.prefill",
                  "kernels.paged_attention.ops", "obs.metrics", "obs.trace",
-                 "obs.export", "obs.loadgen", "obs.slo", "launch.serve"):
+                 "obs.export", "obs.loadgen", "obs.slo", "launch.serve",
+                 "dist.checkpoint", "serve.engine", "obs.torchprof"):
         assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -82,6 +83,49 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     params = init_params(0, get_smoke("llama3.1-8b"), "cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Server(params, get_smoke("llama3.1-8b"))
+
+
+def test_cache_engine_checkpoint_default_to_cuda_and_raise_without_it(
+        no_cuda, tmp_path):
+    """The dense cache, the checkpoint manager's restore and the serve
+    CLI's legacy engine resolve to ``cuda``; the engine and the profiler
+    follow their inputs (the prompts' device; the CPU activity and no
+    memory snapshot without a card)."""
+    from repro_torch.dist import CheckpointManager, TensorSpec
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.obs.torchprof import device_memory_snapshot
+    from repro_torch.serve import generate
+    cfg = get_smoke("llama3.1-8b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 1, 8)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mgr.restore({"w": TensorSpec((2,), torch.float32)})
+    assert mgr.restore({"w": TensorSpec((2,), torch.float32)},
+                       device="cpu")[1]["w"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama3.1-8b", "--smoke", "--legacy"])
+    params = init_params(0, cfg, "cpu")
+    out = generate(params, cfg, torch.zeros((1, 4), dtype=torch.long), 2)
+    assert out.tokens.device.type == "cpu"
+    assert device_memory_snapshot() == {}
+
+
+def test_paged_kernel_modes():
+    """``off`` is the caller's explicit choice of the plain version on any
+    pool; ``auto`` and ``on`` take the kernel for a CUDA pool, and ``on``
+    has no CPU route."""
+    from repro_torch.attention import registry
+    assert registry.resolve_paged(True, "auto").name == "paged_cuda"
+    assert registry.resolve_paged(True, "on").name == "paged_cuda"
+    assert registry.resolve_paged(True, "off").name == "paged_ref"
+    assert registry.resolve_paged(False, "off").name == "paged_ref"
+    with pytest.raises(ValueError, match="no interpret mode"):
+        registry.resolve_paged(False, "on")
+    with pytest.raises(ValueError, match="paged kernel mode"):
+        registry.resolve_paged(True, "fast")
 
 
 class _FakeCuda:

@@ -525,7 +525,45 @@ def test_serve_cli_speculative(flags):
     assert stats["spec_k"] == int(flags[3])
 
 
-def test_serve_cli_draft_dir_raises():
-    with pytest.raises(NotImplementedError, match="item 8a"):
-        tserve.main(["--arch", "llama3.1-8b", "--smoke", "--device", "cpu",
-                     "--draft", "ckpt/draft"])
+def test_serve_cli_draft_dir_restores_checkpoint(tmp_path):
+    """--draft DIR restores DIR/template.json and the newest valid step
+    through the port's checkpoint manager; a checkpoint of the target's
+    own params drafts as ``self`` does: accept rate 1."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.dist import CheckpointManager, save_tree_template
+    from repro_torch.models import init_params
+    tree = {"params": init_params(0, get_smoke("llama3.1-8b"), "cpu")}
+    CheckpointManager(str(tmp_path), keep_n=1).save(3, tree)
+    save_tree_template(str(tmp_path / "template.json"), tree)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        stats = tserve.main(["--arch", "llama3.1-8b", "--smoke",
+                             "--n-requests", "4", "--new-tokens", "6",
+                             "--device", "cpu", "--draft", str(tmp_path),
+                             "--spec-k", "3"])
+    assert f"draft checkpoint {tmp_path} (step 3)" in out.getvalue()
+    assert stats["completed"] == 4 and stats["n_spec_windows"] > 0
+    assert stats["spec_accept_rate"] == 1.0
+
+
+def test_serve_load_draft_unrolls_a_cured_tree(tiny, tmp_path):
+    """A CURed checkpoint (cure's save stage: per-layer groups) restores
+    with the target's config unrolled, so every layer reads its own
+    params."""
+    from repro_torch.configs.base import CURConfig
+    from repro_torch.core import calibrate, compress_model
+    from repro_torch.dist import CheckpointManager, save_tree_template
+    from repro_torch.models import forward
+    _, _, cfg, params = tiny
+    toks = torch.from_numpy(CALIB[:, :16]).long()
+    cp, ccfg, _ = compress_model(params, cfg, CURConfig(
+        r_max=8, n_compress_layers=1, svd="exact"),
+        calibrate(params, cfg, [{"tokens": toks}]))
+    CheckpointManager(str(tmp_path)).save(0, {"params": cp})
+    save_tree_template(str(tmp_path / "template.json"), {"params": cp})
+    step, dp, dcfg = tserve.load_draft(str(tmp_path), cfg, "cpu")
+    assert step == 0 and dcfg == ccfg != cfg
+    assert torch.equal(forward(dp, dcfg, {"tokens": toks}),
+                       forward(cp, ccfg, {"tokens": toks}))
+    same_step, _, same_cfg = tserve.load_draft(str(tmp_path), ccfg, "cpu")
+    assert same_step == 0 and same_cfg == ccfg
