@@ -18,7 +18,14 @@ nonzero:
               flash kernel's zero-padded feature dims (CUR-KV ranks);
               the speculative verify shapes: paged_attention at q_span
               2 / 5 / 8 (G' 8 / 20 / 32) on split tables with ragged
-              contexts, cur_matmul at M 40 (8 slots x 5 positions)
+              contexts, cur_matmul at M 40 (8 slots x 5 positions);
+              flash_attention under autograd (FlashAttentionFn: the
+              kernel's forward, the plain backward): dq / dk / dv against
+              autograd through the plain forward over d 16 .. 128, G 1 /
+              2 / 4, window 0 / 8, ragged S, f32 and bf16; cur_matmul_op
+              and paged_attention_op raise under grad; the backward's time
+              at the olmo-1b train and llama3.1-8b heal shapes beside
+              SDPA's backward
   4. times    kernel, plain version and one library call at the main
               paths' shapes (median of 25 launches, CUDA events), beside
               the least time the card could take (bound), with achieved
@@ -39,7 +46,11 @@ nonzero:
               ``generate``'s greedy tokens card == CPU == the Server's,
               the Server with ``paged_kernel="off"`` on the card (the
               kernel's tokens, no launch), and a checkpoint saved from
-              the card restored on the CPU bit-identical
+              the card restored on the CPU bit-identical; a SMOKE train
+              step's loss and gradients and a heal step's KD loss and dU
+              gradients card vs CPU (2e-5); a REPRO ``train()`` resumed
+              from its step-3 checkpoint gives the uninterrupted run's
+              losses (2e-5 on the card, bitwise on the CPU)
   6. main     ``cure()`` on full-width llama3.1-8b (random weights made on
               the card, 10 of 32 layers CURed at r_max 256, saved to
               ``build/chip_smoke_ckpt`` and smoke-generated through the
@@ -81,12 +92,29 @@ nonzero:
               verify, paged_attention at q_span 5) and its host syncs;
               serve --prof's ``TorchProfiler.scope`` around one decode
               window: its Chrome trace names paged_attention's kernel
-              and the tracer holds the ``prof:`` events
+              and the tracer holds the ``prof:`` events; one olmo-1b
+              train step (phase 9a's path) and one llama3.1-8b heal step
+              (phase 9b's) traced: busy and idle share, top kernels
+  9. train    (before phase 8, which stays last) olmo-1b at full width:
+              eight steps of the train CLI's path (batch 8 x 128): losses,
+              step ms, peak memory, flash_attention launches (16 a step),
+              every weight moved; llama3.1-8b healing at full width:
+              phase 6's dense model CURed in healing form (its 10 layers,
+              r_max 256), eight dU-only KD steps (batch 2 x 512): KD
+              losses, step ms, peak memory, 1,966,080 trainable
+              parameters, frozen leaves unchanged and every dU moved,
+              step 0's dU gradients kernel vs plain attention route
+              (2e-2), 32 + 32 flash_attention launches a step; the trained
+              REPRO pipeline (zoo, 300 steps, into build/ and deleted):
+              perplexity trained / CURed (3 layers, r_max 64, folded,
+              cur_matmul) / healed (40 steps), and the trained model's
+              speculative accept rate at draft self:2, spec_k 4
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernel table.
 ``--phases 1,2,3`` runs only the phases named (for a first check of a new
-kernel); the kernel table and the last line need every phase.
+kernel; phase 9 without 6 makes llama3.1-8b's weights itself); the kernel
+table and the last line need every phase.
 """
 import argparse
 import json
@@ -119,6 +147,7 @@ KV_RANK = 64                                  # CUR-KV pool rank, hd / 2
 # workload B's decode contexts (prompts 256 / 512 / 1024 + up to 64 tokens)
 RAGGED_CTX = (256, 375, 494, 613, 732, 851, 970, 1088)
 SPEC_K = 4                                    # draft tokens per window
+ZOO_STEPS = 300                               # phase 9c's zoo training
 VERIFY_SPANS = (2, SPEC_K + 1, 8)             # q_span = k + 1 at k 1, 4, 7
 VERIFY_M = 8 * (SPEC_K + 1)                   # verify rows: 8 slots x 5
 # phase 5's chaos plan (a repro_torch.testing.FaultPlan as JSON)
@@ -560,9 +589,95 @@ def phase_kernels():
               f"{registry._padded_dim(d)} {dt}", o, ref, dt, False)
         if fa.launches != f0 + 1:
             failures.append(f"flash padded d={d}: kernel not launched")
+    flash_grads(gen, check, failures)
     if failures:
         raise SystemExit(f"kernel checks failed: {failures}")
     return worst
+
+
+def flash_grads(gen, check, failures):
+    """Phase 3's gradient checks of FlashAttentionFn (the kernel's forward,
+    the plain backward ``flash_attention_bwd``): dq / dk / dv against
+    autograd through the plain forward over the kernel's grid (d 16 / 32
+    / 64 / 128, G 1 / 2 / 4, window 0 / 8, ragged S, f32 and bf16); the
+    forward-only ops raising under grad; then the backward's time at the
+    olmo-1b train and llama3.1-8b heal shapes beside SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.cur_matmul.ops import cur_matmul_op
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.backward import (
+        flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention.ops import paged_attention_op
+    f32, bf16 = torch.float32, torch.bfloat16
+    n, bad = 0, []
+    for i, (d, G, win, dt) in enumerate(
+            (d, G, win, dt) for d in (16, 32, 64, 128) for G in (1, 2, 4)
+            for win in (0, 8) for dt in (f32, bf16)):
+        S = (40, 72, 100, 130)[i % 4]               # ragged: no 64 multiple
+        B, K = 1 + i % 2, 2
+        q, k, v, do = (_randn(gen, (B, h, S, d), dt) for h in
+                       (K * G, K, K, K * G))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        f0 = fa.launches
+        o = flash_attention_op(*leaves, window=win, scale=d ** -0.5)
+        got = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref = torch.autograd.grad(flash_attention_ref(
+            *ref_leaves, window=win, scale=d ** -0.5), ref_leaves, do)
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        rels = [rel_err(a, b) for a, b in zip(got, ref)]
+        ok = (max(rels) < tol and fa.launches == f0 + 1
+              and all(a.dtype == dt for a in got))
+        n += 1
+        if not ok:
+            bad.append(f"flash grads d={d} G={G} window={win} {dt}")
+            say(f"  flash grads B={B} K={K} G={G} S={S} d={d} window={win} "
+                f"{dt}: rel dq/dk/dv {', '.join(f'{r:.3e}' for r in rels)}"
+                f" (tol {tol:g}) FAIL")
+    say(f"  FlashAttentionFn gradients, {n} cases (d 16/32/64/128, G "
+        f"1/2/4, window 0/8, S 40/72/100/130, f32 and bf16): dq, dk, dv "
+        f"against autograd through the plain forward "
+        f"{'all within' if not bad else 'NOT all within'} "
+        f"{F32_TOL:g} (f32) / {BF16_TOL:g} (bf16)")
+    failures.extend(bad)
+    x, cu, rr = (_randn(gen, s, bf16) for s in ((64, 128), (128, 16),
+                                                 (16, 128)))
+    paged = _paged_case(2, 2, 2, 16, 8, 4, 4)
+    for label, op, args in (("cur_matmul_op", cur_matmul_op, (x, cu, rr)),
+                            ("paged_attention_op", paged_attention_op,
+                             paged)):
+        args[0].requires_grad_(True)
+        try:
+            op(*args)
+            failures.append(f"{label} under grad did not raise")
+        except RuntimeError as exc:
+            say(f"  {label} with an input that requires grad raises: {exc}")
+    # the backward's time at the training shapes, beside SDPA's backward
+    for label, (B, H, K, S, d) in (("olmo-1b train", (8, 16, 16, 128, 128)),
+                                   ("llama3.1-8b heal", (2, 32, 8, 512,
+                                                          128))):
+        q, o, do = (_randn(gen, (B, H, S, d), bf16) for _ in range(3))
+        k, v = (_randn(gen, (B, K, S, d), bf16) for _ in range(2))
+        scale = d ** -0.5
+        o = fa.flash_attention(q, k, v, scale=scale)
+        ms = median_ms(lambda: flash_attention_bwd(
+            q, k, v, o, do, causal=True, window=0, scale=scale))
+        ls = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        so = F.scaled_dot_product_attention(*ls, is_causal=True, scale=scale,
+                                            enable_gqa=True)
+        lib = median_ms(lambda: torch.autograd.grad(so, ls, do,
+                                                    retain_graph=True))
+        pairs = S * (S + 1) // 2
+        nbytes = 2 * (4 * B * H * S * d + 4 * B * K * S * d)
+        flops = 10 * B * H * d * pairs      # S, dV, dP, dQ, dK over live pairs
+        bnd, by = bound_ms(nbytes, flops)
+        say(f"  flash_attention backward, {label} shape B={B} H={H} K={K} "
+            f"S={S} d={d} bf16: plain backward {ms:.4f} ms, SDPA backward "
+            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
 
 
 def _paged_inputs(gen, r, ctxs=None, span=1, dtype=None):
@@ -866,6 +981,104 @@ def phase_small():
     small_chaos(cparams, ccfg_model, wl, calib_toks, served[False]["cuda"])
     small_engine(cparams, ccfg_model, ds, wl, calib_toks,
                  served[False]["cuda"])
+    small_train()
+
+
+def small_train():
+    """Phase 5's training checks, f32, card against CPU: one SMOKE train
+    step's loss and gradients and one heal step's KD loss and dU gradients
+    (2e-5; the card's forwards run flash_attention under autograd); then a
+    REPRO ``train()`` with a checkpoint every 3 steps, resumed from step 3
+    into a fresh run: its losses equal the uninterrupted run's (2e-5 on the
+    card, bitwise on the CPU)."""
+    import shutil
+    import torch
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_repro, get_smoke
+    from repro_torch.configs.base import CURConfig, OptimizerConfig
+    from repro_torch.core import calibrate, compress_model, heal
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.dist import CheckpointManager, tree_flatten
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import forward_hidden, init_params, loss_fn
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_loop import train
+    bad = []
+    cfg = get_smoke("llama3.1-8b")
+    params = init_params(0, cfg, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 129),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    sp, scfg, _ = compress_model(params, cfg, CURConfig(
+        r_max=8, n_compress_layers=2), calibrate(params, cfg, [batch]))
+    res, launched = {}, {}
+    for dev in ("cuda", "cpu"):
+        p, s, b = (tree_map(lambda t: t.to(dev), x)
+                   for x in (params, sp, batch))
+        f0 = fa.launches
+        train_lg = heal.value_and_grad(lambda q: loss_fn(q, cfg, b), p)
+        tr, fr = heal.partition_params(s, heal.trainable_mask(s, "dU"))
+        with torch.no_grad():
+            t_log, t_hid = forward_hidden(p, cfg, b)
+        heal_lg = heal.value_and_grad(lambda t: heal.kd_loss_fn(
+            heal.combine_params(t, fr), scfg, b, t_log, t_hid), tr)
+        launched[dev] = fa.launches - f0
+        res[dev] = (train_lg, heal_lg)
+    for i, what in enumerate(("train step (all leaves)",
+                              "heal step (dU leaves)")):
+        (lg, gg), (lc, gc) = res["cuda"][i], res["cpu"][i]
+        gl, cl = tree_flatten(gg), tree_flatten(gc)
+        rels = [rel_err(a.cpu(), b) for a, b in zip(gl, cl)]
+        rel_l = rel_err(lg.cpu(), lc)
+        say(f"  SMOKE {what}: card vs CPU loss rel {rel_l:.3e}, "
+            f"{len(rels)} gradients rel max {max(rels):.3e} "
+            f"(tol {F32_TOL:g})")
+        if not (rel_l < F32_TOL and max(rels) < F32_TOL
+                and len(gl) == len(cl) > 0):
+            bad.append(what)
+    say(f"  flash_attention launches on the card: {launched['cuda']} "
+        f"(3 forwards x {cfg.n_layers} layers)")
+    if launched["cuda"] != 3 * cfg.n_layers:
+        bad.append("flash_attention launches under autograd")
+
+    rcfg = get_repro()
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+    threads = torch.get_num_threads()
+    for dev in ("cuda", "cpu"):
+        # multi-threaded CPU training is not bitwise repeatable (two
+        # identical runs in one process differ in the last bits); one
+        # thread is
+        torch.set_num_threads(1 if dev == "cpu" else threads)
+        ds = SyntheticLM(DataConfig(rcfg.vocab_size, 128, 4, seed=3), dev)
+        batches = [ds.batch_at(i) for i in range(6)]
+        p0 = init_params(0, rcfg, dev)
+        d = os.path.join(ROOT, "build", "chip_smoke_train_ckpt", dev)
+        shutil.rmtree(d, ignore_errors=True)
+        mgr = CheckpointManager(d)
+        _, _, full = train(p0, rcfg, ocfg, batches, ckpt_manager=mgr,
+                           ckpt_every=3)
+        step, state = mgr.restore(
+            {"params": p0, "opt_state": AdamW(ocfg).init(p0)}, device=dev,
+            step=3)
+        _, _, resumed = train(state["params"], rcfg, ocfg, batches[3:],
+                              start_step=3, opt_state=state["opt_state"])
+        shutil.rmtree(d)
+        if dev == "cpu":
+            ok = resumed == full[3:]
+            how = "bitwise"
+        else:
+            ok = all(abs(a - b) / abs(b) < F32_TOL
+                     for a, b in zip(resumed, full[3:]))
+            how = f"within {F32_TOL:g}"
+        say(f"  REPRO train() on {dev}, 6 steps with a checkpoint every 3: "
+            f"losses {', '.join(f'{x:.6f}' for x in full)}; resumed from "
+            f"step {step}: {', '.join(f'{x:.6f}' for x in resumed)} "
+            f"({how}: {'yes' if ok else 'NO'})")
+        if not (ok and step == 3):
+            bad.append(f"resume on {dev}")
+    torch.set_num_threads(threads)
+    if bad:
+        raise SystemExit(f"small-model training checks failed: {bad}")
 
 
 def small_engine(params, cfg, ds, wl, calib_toks, served):
@@ -1667,7 +1880,341 @@ def serve_chaos(params, cfg, wl):
     return launches
 
 
-def phase_split(run):
+def _counts():
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    return {"cur_matmul": cm.launches, "flash_attention": fa.launches,
+            "paged_attention": pa.launches}
+
+
+def _zero_counts():
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    cm.launches = fa.launches = pa.launches = 0
+
+
+def phase_train(run):
+    """Phase 9: training and healing at full width, then the trained-weights
+    pipeline. Each part is driven with the counts set to 0 just before it
+    and read just after. Returns the summed counts and 9b's heal step
+    (for phase 8's trace)."""
+    import torch
+    say("== phase 9: training and healing on the card")
+    total = {"cur_matmul": 0, "flash_attention": 0, "paged_attention": 0}
+    failed, heal_case = [], None
+    for part in (train_olmo, lambda: heal_llama(run), trained_repro):
+        torch.cuda.synchronize()
+        _zero_counts()
+        out = part()
+        if isinstance(out, tuple):
+            out, heal_case = out
+        failed += out
+        torch.cuda.synchronize()
+        for k, v in _counts().items():
+            total[k] += v
+        torch.cuda.empty_cache()
+    say(f"  phase 9 launches {json.dumps(total)}")
+    if failed:
+        raise SystemExit(f"training checks failed: {failed}")
+    return total, heal_case
+
+
+def train_olmo():
+    """9a: olmo-1b at full width (random weights, bf16), eight steps of the
+    train CLI's path (``launch.train.run``) at batch 8 x 128 tokens, the
+    CLI's defaults otherwise."""
+    import torch
+    from repro_torch.dist import tree_flatten
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_params
+    args = train_cli.parser().parse_args([
+        "--arch", "olmo-1b", "--steps", "8", "--batch", "8", "--seq-len",
+        "128", "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    tr = train_cli.run(args)
+    wall = time.perf_counter() - t0
+    cfg = tr.cfg
+    n_params = sum(t.numel() for t in tree_flatten(tr.params))
+    steps_ms = [1e3 * t for t in tr.watchdog._times]
+    say(f"  9a olmo-1b ({cfg.n_layers} L, d {cfg.d_model}, H {cfg.n_heads} "
+        f"K {cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, ff {cfg.d_ff}, V "
+        f"{cfg.vocab_size}, {cfg.dtype}, {n_params} parameters), batch "
+        f"{args.batch} x {args.seq_len} tokens, {args.steps} steps in "
+        f"{wall:.2f} s")
+    say(f"    losses {', '.join(f'{x:.4f}' for x in tr.losses)}")
+    say(f"    step ms {', '.join(f'{x:.1f}' for x in steps_ms)} (median of "
+        f"steps 2-8 {statistics.median(steps_ms[1:]):.1f} ms)")
+    say(f"    peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB ({base:.2f} GiB held before, phase 6's model); "
+        f"flash_attention launches {fa.launches} "
+        f"({fa.launches / args.steps:g} per step)")
+    # every weight moved: against a fresh init from the same seed, leaf by
+    # leaf and layer by layer
+    init = init_params(0, cfg, "cuda")
+    same = [i for i, (a, b) in enumerate(zip(tree_flatten(init),
+                                             tree_flatten(tr.params)))
+            if (a.dim() == 3 and any(torch.equal(x, y)
+                                     for x, y in zip(a, b)))
+            or torch.equal(a, b)]
+    del init
+    checks = {
+        "every loss finite": all(math.isfinite(x) for x in tr.losses),
+        "every weight moved": not same,
+        "flash_attention 16 per step":
+            fa.launches == cfg.n_layers * args.steps,
+        "Adam step count 8": int(tr.opt_state["step"]) == args.steps,
+    }
+    return [f"9a: {k}" for k, ok in checks.items()
+            if not ok]
+
+
+def heal_llama(run):
+    """9b: llama3.1-8b at full width (phase 6's dense params, bf16; ``run``
+    None: the same seed's, made here) CURed in healing form (phase 6's 10
+    layers, r_max 256, fold_u off), then eight
+    dU-only KD heal steps (alpha 0.1, T 10, AdamW lr 3e-4) on batch 2 x 512
+    tokens."""
+    import torch
+    from repro_torch.attention import registry
+    from repro_torch.configs.base import CURConfig, OptimizerConfig
+    from repro_torch.core import calibrate, compress_model, heal
+    from repro_torch.core.peft import count_trainable
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.dist import tree_flatten
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import forward_hidden
+    from repro_torch.optim.adamw import AdamW
+    if run is None:       # phase 6 not run: cure()'s seed-0 weights
+        from repro_torch.configs import get_config
+        from repro_torch.models import init_params
+        cfg = get_config("llama3.1-8b")
+        teacher, layers = init_params(0, cfg, "cuda"), None
+    else:
+        cfg, teacher = run.cfg, run.params
+        layers = run.report["layers_compressed"]
+    t0 = time.perf_counter()
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, 512, 4, seed=0), "cuda")
+    calib = calibrate(teacher, cfg, [ds.batch_at(i) for i in range(4)])
+    student, scfg, info = compress_model(teacher, cfg, CURConfig(
+        r_max=256, n_compress_layers=10, selection="wanda_deim",
+        svd="randomized", fold_u=False, pipeline="batched"), calib,
+        layers=layers)
+    del calib
+    torch.cuda.synchronize()
+    t_cure = time.perf_counter() - t0
+    mask = heal.trainable_mask(student, "dU")
+    n_train = count_trainable(student, mask)
+    tr, fr = heal.partition_params(student, mask)
+    opt = AdamW(OptimizerConfig(lr=3e-4, warmup_steps=10, total_steps=8))
+    step = heal.make_heal_step(scfg, cfg, teacher, opt, alpha=0.1, temp=10.0)
+    hds = SyntheticLM(DataConfig(cfg.vocab_size, 512, 2, seed=2), "cuda")
+    batches = [hds.batch_at(i) for i in range(8)]
+
+    say(f"  9b llama3.1-8b heal: {len(info.weights)} weights of layers "
+        f"{info.layers} CURed in healing form (r_max 256) in {t_cure:.1f} s; "
+        f"{n_train} trainable parameters (dU)")
+    labels = [f"{li}:{name}" for li, group in enumerate(student["groups"])
+              for name in sorted(group[0]) if isinstance(group[0][name], dict)
+              and "dU" in group[0][name]]
+
+    # step 0's dU gradients by three attention routes: the kernel
+    # (FlashAttentionFn), the plain route (the flash adaptor calling the
+    # kernel's plain version under autograd) and, for the noise floor of
+    # two plain bf16 routes, the registry's dense backend
+    def du_grads():
+        with torch.no_grad():
+            t_log, t_hid = forward_hidden(teacher, cfg, batches[0])
+        loss, g = heal.value_and_grad(lambda t: heal.kd_loss_fn(
+            heal.combine_params(t, fr), scfg, batches[0], t_log, t_hid,
+            alpha=0.1, temp=10.0), tr)
+        return float(loss), tree_flatten(g)
+
+    f0 = fa.launches
+    lk, gk = du_grads()
+    per_pass = fa.launches - f0
+    kernel_op = fa_ops.flash_attention_op
+    fa_ops.flash_attention_op = (
+        lambda q, k, v, *, causal=True, window=0, scale=None:
+        flash_attention_ref(q, k, v, causal=causal, window=window,
+                            scale=scale))
+    f1 = fa.launches
+    try:
+        lp, gp = du_grads()
+    finally:
+        fa_ops.flash_attention_op = kernel_op
+    flash_be = registry._REGISTRY["mix"].pop(0)
+    try:
+        ld, gd = du_grads()
+    finally:
+        registry._REGISTRY["mix"].insert(0, flash_be)
+    plain_launches = fa.launches - f1
+    kp = [rel_err(a, b) for a, b in zip(gk, gp)]
+    dp = [rel_err(a, b) for a, b in zip(gd, gp)]
+    top = max(float(b.abs().max()) for b in gp)
+
+    def whole(x, y):
+        return rel_err(torch.cat([a.flatten() for a in x]),
+                       torch.cat([b.flatten() for b in y]))
+    # the bound is held on the whole dU gradient (all leaves as one
+    # array): leaf by leaf, two plain bf16 routes already disagree by more
+    # than 2e-2 on the small wq / wk gradients, so there the kernel route
+    # is held to the plain routes' own spread
+    grad_whole = whole(gk, gp)
+    say(f"    step 0 dU gradients: KD loss kernel {lk:.6f}, plain {lp:.6f}, "
+        f"dense {ld:.6f}; all {len(gk)} as one array, kernel vs plain "
+        f"{grad_whole:.3e} (tol {BF16_TOL:g}), dense vs plain "
+        f"{whole(gd, gp):.3e}; per leaf, rel max kernel vs plain "
+        f"{max(kp):.3e}, dense vs plain {max(dp):.3e}; flash_attention "
+        f"launches {per_pass} (teacher + student forwards), plain routes "
+        f"{plain_launches}")
+    say("      largest per leaf (kernel vs plain | dense vs plain; leaf "
+        "max|g| / all max|g|): " + "; ".join(
+            f"{labels[i]} {kp[i]:.2e} | {dp[i]:.2e}; "
+            f"{float(gp[i].abs().max()) / top:.2e}"
+            for i in sorted(range(len(kp)), key=lambda i: -kp[i])[:4]))
+    del gk, gp, gd
+    frozen_before = [t.clone() for t in tree_flatten(fr)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    losses, ms, launches = [], [], []
+    du0 = [t.clone() for t in tree_flatten(tr)]
+    opt_state = opt.init(tr)
+    for b in batches:
+        f0 = fa.launches
+        t1 = time.perf_counter()
+        tr, opt_state, loss = step(tr, fr, opt_state, b)
+        losses.append(float(loss))
+        ms.append(1e3 * (time.perf_counter() - t1))
+        launches.append(fa.launches - f0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"    KD losses {', '.join(f'{x:.4f}' for x in losses)}")
+    say(f"    step ms {', '.join(f'{x:.1f}' for x in ms)} (median of steps "
+        f"2-8 {statistics.median(ms[1:]):.1f} ms); peak memory {peak:.2f} "
+        f"GiB ({base:.2f} GiB held before: teacher, student factors, the "
+        f"frozen leaves' copies for the check); flash_attention launches "
+        f"per step {launches}")
+    frozen_same = all(torch.equal(a, b) for a, b in zip(
+        frozen_before, tree_flatten(fr)))
+    du_moved = all(not torch.equal(a, b) for a, b in zip(
+        du0, tree_flatten(tr)))
+    del frozen_before, du0
+    checks = {
+        "30 dU of 256^2 = 1,966,080 trainable": n_train == 30 * 256 * 256,
+        "every loss finite": all(math.isfinite(x) for x in losses),
+        "every frozen leaf torch.equal to before": frozen_same,
+        "every dU moved": du_moved,
+        "step 0 dU gradient kernel vs plain route (one array)":
+            grad_whole < BF16_TOL,
+        "step 0 dU gradients per leaf within the plain routes' spread":
+            max(kp) <= max(dp),
+        "flash_attention 32 per student + 32 per teacher forward":
+            per_pass == 2 * cfg.n_layers and plain_launches == 0 and
+            all(n == 2 * cfg.n_layers for n in launches),
+    }
+    failed = [f"9b: {k}" for k, ok in checks.items() if not ok]
+    return failed, (step, tr, fr, opt_state, batches[0])
+
+
+def trained_repro():
+    """9c: the paper's Fig. 4/5 pipeline on the trained REPRO model
+    (examples/train_compress_heal.py): ``zoo.get_trained_repro(300)`` into
+    build/ (deleted after), calibrate, CUR 3 layers at r_max 64, 40 heal
+    steps; perplexity at each stage through the folded model (cur_matmul);
+    then the trained model served with an early-exit self-draft
+    (``--draft self:2 --spec-k 4``): its accept rate."""
+    import shutil
+    import torch
+    from repro_torch import zoo
+    from repro_torch.configs.base import CURConfig, OptimizerConfig
+    from repro_torch.core import calibrate, compress_model, fold_cur, heal
+    from repro_torch.data.tokens import SyntheticLM
+    from repro_torch.dist import tree_flatten
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.launch.serve import make_workload
+    from repro_torch.models.layers import is_cur
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.serving import PagedConfig, Server
+    from repro_torch.serving.speculative import early_exit_draft
+    from repro_torch.train.evaluate import perplexity
+    d = os.path.join(ROOT, "build", "chip_smoke_zoo")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    params, cfg = zoo.get_trained_repro(ZOO_STEPS, device="cuda", zoo_dir=d)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    shutil.rmtree(d)
+    evalb = zoo.eval_batches(cfg, n=4, device="cuda")
+    ppl0 = perplexity(params, cfg, evalb)
+    ds = SyntheticLM(zoo.data_config(cfg, seed=1), "cuda")
+    calib = calibrate(params, cfg, [ds.batch_at(i) for i in range(2)])
+    sp, scfg, info = compress_model(params, cfg, CURConfig(
+        r_max=64, n_compress_layers=3), calib)
+
+    def folded(tree):             # every {C, U0, dU, R} as {CU, R}
+        return {**tree, "groups": [
+            [{k: fold_cur(w) if is_cur(w) else w for k, w in block.items()}
+             for block in group] for group in tree["groups"]]}
+    c0 = cm.launches
+    ppl1 = perplexity(folded(sp), scfg, evalb)
+    cur_launches = cm.launches - c0
+    tr, fr = heal.partition_params(sp, heal.trainable_mask(sp, "dU"))
+    opt = AdamW(OptimizerConfig(lr=3e-4, warmup_steps=10, total_steps=40))
+    state = opt.init(tr)
+    step = heal.make_heal_step(scfg, cfg, params, opt)
+    hds = SyntheticLM(zoo.data_config(cfg, seed=2), "cuda")
+    t1 = time.perf_counter()
+    kd = []
+    for i in range(40):
+        tr, state, loss = step(tr, fr, state, hds.batch_at(i))
+        kd.append(float(loss))
+    t_heal = time.perf_counter() - t1
+    ppl2 = perplexity(folded(heal.combine_params(tr, fr)), scfg, evalb)
+    say(f"  9c trained REPRO ({cfg.name}, {ZOO_STEPS} zoo steps in "
+        f"{t_train:.1f} s): perplexity trained {ppl0:.3f}, CURed "
+        f"({len(info.layers)} layers {info.layers}, r_max 64, folded) "
+        f"{ppl1:.3f}, healed "
+        f"(40 dU-only KD steps in {t_heal:.1f} s, KD loss {kd[0]:.4f} -> "
+        f"{kd[-1]:.4f}) {ppl2:.3f}; uniform would be {cfg.vocab_size}; "
+        f"cur_matmul launches in the folded pass {cur_launches}")
+    wl = make_workload(16, cfg.vocab_size, max_new=32)
+    max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
+    pc = PagedConfig.sized_for(max_len, 8, block_size=16)
+    off = _serve_all(Server(params, cfg, pc, max_concurrency=8,
+                            device="cuda"), wl)
+    dparams, dcfg = early_exit_draft(params, cfg, 2)
+    srv = Server(params, cfg, pc, max_concurrency=8, draft_params=dparams,
+                 draft_cfg=dcfg, spec_k=4, device="cuda")
+    on = _serve_all(srv, wl)
+    st = srv.stats()
+    say(f"    served with draft self:2, spec_k 4 ({len(wl)} requests of "
+        f"workload A): accept rate {st['spec_accept_rate']:.4f} over "
+        f"{st['n_spec_windows']} windows ({st['n_spec_fallbacks']} "
+        f"fallbacks); greedy tokens "
+        f"{'identical to' if on == off else 'DIFFER from'} spec-off")
+    checks = {
+        "perplexities finite": all(math.isfinite(x)
+                                   for x in (ppl0, ppl1, ppl2)),
+        "trained perplexity below uniform": ppl0 < cfg.vocab_size,
+        "3 layers CURed": len(info.layers) == 3,
+        "cur_matmul launched by the folded passes": cur_launches > 0,
+        "spec-on tokens == spec-off (f32)": on == off,
+        "speculative windows ran": st["n_spec_windows"] > 0,
+        "healed dU finite": all(bool(torch.isfinite(t).all())
+                                for t in tree_flatten(tr)),
+    }
+    return [f"9c: {k}" for k, ok in checks.items()
+            if not ok]
+
+
+def phase_split(run, heal_case=None):
     """Device time by kernel (torch.profiler), run last so that no profiler
     window precedes a timed phase: cur_matmul per weight and pass and the
     torch.matmul chain, flash_attention and paged_attention and SDPA at
@@ -1755,6 +2302,68 @@ def phase_split(run):
             f"{e.count:6d} x {e.key[:90]}")
     profile_spec_window(run)
     profile_scope(run)
+    profile_train()
+    if heal_case is not None:
+        profile_heal(heal_case)
+
+
+def _trace_step(label, fn):
+    """One call of ``fn`` (a step that ends in a host read) under
+    torch.profiler: wall against kernels' busy time, and the kernels that
+    took the most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    say(f"  {label} (traced): wall {wall:.3f} s, kernels busy {busy:.3f} s, "
+        f"device idle share {1 - busy / wall:.3f}, "
+        f"{sum(e.count for e in rows)} kernel launches")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+        say(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d} x {e.key[:90]}")
+
+
+def profile_heal(heal_case):
+    """One llama3.1-8b heal step of phase 9b (its student, optimizer state
+    and first batch) under torch.profiler."""
+    step, tr, fr, opt_state, batch = heal_case
+    _trace_step("llama3.1-8b heal step (batch 2 x 512)",
+                lambda: float(step(tr, fr, opt_state, batch)[2]))
+
+
+def profile_train():
+    """One olmo-1b train step of phase 9a's path (batch 8 x 128, after two
+    untraced steps) under torch.profiler: wall against kernels' busy time,
+    and the kernels that took the most."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_loop import make_train_step
+    cfg = get_config("olmo-1b")
+    params = init_params(0, cfg, "cuda")
+    opt = AdamW(OptimizerConfig(lr=1e-3, warmup_steps=10, total_steps=8))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, 128, 8), "cuda")
+    for i in range(2):
+        params, state, _ = step(params, state, ds.batch_at(i))
+    batch = ds.batch_at(2)
+    _trace_step("olmo-1b train step (batch 8 x 128)",
+                lambda: float(step(params, state, batch)[2]))
+    del params, state
+    torch.cuda.empty_cache()
 
 
 def profile_scope(run):
@@ -1983,7 +2592,7 @@ def main():
         return 2
     from repro_torch.kernels import _build  # noqa: F401 (fails off-repo)
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (all by default)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     smi = phase_card()
@@ -1993,21 +2602,29 @@ def main():
     times = phase_times() if 4 in phases else None
     if 5 in phases:
         phase_small()
+    run = None
     if 6 in phases:
         main_launches, run, draft = phase_main()
         if 7 in phases:
             serve_launches = phase_serve(run, draft)
-        if 8 in phases:
-            phase_split(run)
-    if phases != set(range(1, 9)):
+        del draft                   # phase 7's restored draft: 14.6 GB
+        torch.cuda.empty_cache()
+    heal_case = None
+    if 9 in phases:
+        train_launches, heal_case = phase_train(run)
+    if 8 in phases and run is not None:
+        phase_split(run, heal_case)
+    if phases != set(range(1, 10)):
         say(f"ran phases {sorted(phases)} only: no kernel table")
         return 1
     # launches on the main paths: the last cure() run (its generate stage
-    # included) with both perplexity passes (phase 6) and phase 7's runs
+    # included) with both perplexity passes (phase 6), phase 7's runs and
+    # phase 9's training, healing and trained-weights runs
     launches = {k: main_launches.get(k, 0) + serve_launches[k]
-                for k in serve_launches}
+                + train_launches[k] for k in serve_launches}
     say(f"launches phase 6 {json.dumps(main_launches)}, phase 7 "
-        f"{json.dumps(serve_launches)}")
+        f"{json.dumps(serve_launches)}, phase 9 "
+        f"{json.dumps(train_launches)}")
     meta = {
         "cur_matmul": ("src/repro_torch/csrc/cur_matmul.cu",
                        "src/repro/kernels/cur_matmul/cur_matmul.py:48"),

@@ -82,7 +82,9 @@ def _mix_flash_cuda(q, k, v, q_pos, kv_pos, window, scale, *, chunk):
     back. Positions are contiguous from 0 at every call site. A feature
     dim between the kernel's widths (a CUR-KV rank r) is zero-padded up to
     the next one and the output sliced back: zero columns add nothing to
-    the scores, and ``scale`` is passed explicitly, so this is exact."""
+    the scores, and ``scale`` is passed explicitly, so this is exact. The
+    pad, permutes and slice are differentiable: under autograd the padded
+    columns get zero gradient and are sliced off."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     B, S, K, G, d = q.shape
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, d)

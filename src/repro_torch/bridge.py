@@ -1,17 +1,19 @@
-"""numpy <-> torch for parameter trees.
+"""numpy <-> torch for parameter trees, and the tree walks the port shares.
 
 The trees have the JAX package's layout (``repro.models.model.init_params``):
 a dict with ``embed`` / ``out_head`` / ``final_norm`` and a ``groups`` list
 of per-pattern lists of block dicts whose leaves carry a leading
 ``repeats`` axis. A CUR weight is a dict ``{C, U0, dU, R}`` (healing form)
-or ``{CU, R}`` (folded form); it converts like any other subtree.
+or ``{CU, R}`` (folded form); it converts like any other subtree. ``None``
+is an empty subtree, as in ``jax.tree``: the frozen leaves of a healing
+optimizer state are ``None`` and cross as ``None``.
 
 bf16 leaves cross as float32 numpy arrays (numpy has no bfloat16) and are
 cast back on the other side, which is exact in both directions.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List
 
 import numpy as np
 import torch
@@ -19,7 +21,8 @@ import torch
 NP_TO_TORCH = {  # numpy dtype name -> torch dtype (ml_dtypes bfloat16)
     "float32": torch.float32, "float64": torch.float64,
     "float16": torch.float16, "bfloat16": torch.bfloat16,
-    "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+    "int8": torch.int8, "int32": torch.int32, "int64": torch.int64,
+    "bool": torch.bool,
 }
 
 
@@ -27,6 +30,8 @@ def to_torch(tree: Any, device) -> Any:
     """Numpy-leaved tree (e.g. ``jax.device_get(params)`` or arrays that
     expose ``__array__``) -> torch tree on ``device``. A leaf whose dtype
     is named ``bfloat16`` (ml_dtypes) becomes ``torch.bfloat16``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -45,6 +50,8 @@ def to_torch(tree: Any, device) -> Any:
 def to_numpy(tree: Any) -> Any:
     """Torch tree -> numpy tree. bf16 leaves come back as float32 arrays
     (exact)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -56,10 +63,43 @@ def to_numpy(tree: Any) -> Any:
 
 
 def tree_map(fn, tree: Any) -> Any:
-    """Apply ``fn`` to every tensor leaf (dicts and lists are structure)."""
+    """Apply ``fn`` to every tensor leaf (dicts and lists are structure,
+    ``None`` stays ``None``)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
+
+def flatten_up_to(template: Any, tree: Any) -> List[Any]:
+    """The subtrees of ``tree`` at the leaf positions of ``template``, in
+    ``jax.tree.leaves`` order (dict keys sorted). A ``None`` in
+    ``template`` counts as a leaf, as with JAX's ``is_leaf=lambda x: x is
+    None``; so ``flatten_up_to(params, opt_moments)`` gives one moment
+    dict (or ``None``) per parameter."""
+    if isinstance(template, dict):
+        return [x for k in sorted(template)
+                for x in flatten_up_to(template[k], tree[k])]
+    if isinstance(template, (list, tuple)):
+        return [x for t, s in zip(template, tree)
+                for x in flatten_up_to(t, s)]
+    return [tree]
+
+
+def unflatten_as(template: Any, leaves) -> Any:
+    """Inverse of :func:`flatten_up_to`: the structure of ``template``
+    with its leaf positions (``None`` included) filled from ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(template)

@@ -7,7 +7,8 @@ port's main path runs at full width.
 """
 from repro_torch.configs import llama31_8b, olmo_1b
 from repro_torch.configs.base import (
-    ATTN, ATTN_LOCAL, MAMBA, MLP, MOE, BlockSpec, CURConfig, ModelConfig)
+    ATTN, ATTN_LOCAL, MAMBA, MLP, MOE, BlockSpec, CURConfig, ModelConfig,
+    OptimizerConfig, TrainConfig)
 
 _MODULES = {
     "llama3.1-8b": llama31_8b,
@@ -31,5 +32,5 @@ def get_repro() -> ModelConfig:
 
 
 __all__ = ["ARCHS", "ATTN", "ATTN_LOCAL", "MAMBA", "MLP", "MOE", "BlockSpec",
-           "CURConfig", "ModelConfig", "get_config", "get_repro",
-           "get_smoke"]
+           "CURConfig", "ModelConfig", "OptimizerConfig", "TrainConfig",
+           "get_config", "get_repro", "get_smoke"]

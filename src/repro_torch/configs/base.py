@@ -5,8 +5,9 @@ A model is described by a ``ModelConfig`` whose ``groups`` field lists
 (pattern, repeats) scan groups; each pattern entry is a ``BlockSpec``
 describing one decoder block (sequence-mixer + channel-mixer pair).
 
-``CURConfig`` holds the CURing options. Field names and defaults match the
-JAX package so a config means the same thing in both.
+``CURConfig`` holds the CURing options, ``OptimizerConfig`` and
+``TrainConfig`` those of training and healing. Field names and defaults
+match the JAX package so a config means the same thing in both.
 """
 from __future__ import annotations
 
@@ -205,3 +206,32 @@ class CURConfig:
     # satisfy 1 <= r <= min(m, n). Both pipelines honor the allocation
     # identically (batched groups by (m, n, r)).
     ranks: Optional[Mapping[str, int]] = None
+
+
+# ---------------------------------------------------------------------------
+# Optimizer / training
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4                # paper App. B healing LR
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 2_000
+    schedule: str = "cosine"
+    quantized_state: bool = False   # int8 row-quantized m/v (for 1T-scale)
+    state_block: int = 256
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    microbatch: int = 0             # 0 -> no grad accumulation
+    distill_alpha: float = 0.1      # paper App. B: CE weight (KD weight 0.9)
+    distill_temp: float = 10.0
+    seed: int = 0
+    # error-feedback compressed gradients (repro_torch.dist.compression)
+    grad_compress: str = "none"     # "none" | "ef_int8"

@@ -1,5 +1,6 @@
 """CURing — compression via CUR decomposition with WANDA x DEIM selection
-and angular-distance layer choice."""
+and angular-distance layer choice; dU-only KD healing (``core.heal``) and
+the PEFT baselines (``core.peft``) are submodules."""
 from repro_torch.core.angular import (
     angular_distance, layer_distances, select_layers)
 from repro_torch.core.calibrate import CalibStats, calibrate

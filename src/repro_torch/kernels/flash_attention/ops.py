@@ -1,6 +1,12 @@
 """Public flash attention op: the CUDA kernel for CUDA tensors, the plain
 PyTorch version for CPU tensors. Any other device raises.
 
+On the card the kernel runs inside ``FlashAttentionFn``, an autograd
+function whose backward is :func:`flash_attention_bwd` (PyTorch ops), so
+gradients reach q, k and v; the kernel's ctypes launch alone would give an
+output with no graph. On the CPU the plain version is differentiable as
+it is.
+
 Dispatch between this op and the plain backends is owned by the attention
 registry (``repro_torch.attention.registry``); this module is the raw op.
 """
@@ -11,7 +17,29 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as _kernel
+from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Forward: the hand kernel, unchanged. Backward: the plain
+    :func:`flash_attention_bwd` from the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
+        o = _kernel.flash_attention(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -23,7 +51,9 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
     if q.device.type == "cuda":
-        return _kernel.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-            window=window, scale=scale)
+        if scale is None:
+            scale = q.shape[-1] ** -0.5
+        return FlashAttentionFn.apply(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal, window,
+                                      float(scale))
     raise ValueError(f"flash_attention_op: no kernel for {q.device}")

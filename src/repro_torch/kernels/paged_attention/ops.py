@@ -1,6 +1,9 @@
 """Public paged-attention decode op: the CUDA kernel for CUDA tensors, the
 plain PyTorch version for CPU tensors. Any other device raises.
 
+The op is forward-only: asked for a gradient (grad mode on and an input
+that requires one) it raises rather than return an output with no graph.
+
 Dispatch between this op and the plain version is owned by the attention
 registry (``repro_torch.attention.registry``, variant ``paged_decode``);
 this module is the raw op.
@@ -19,6 +22,11 @@ def paged_attention_op(q: torch.Tensor, k_pool: torch.Tensor,
                        q_span: int = 1) -> torch.Tensor:
     """q (B, K, G', r) folded/pre-scaled -> (B, K, G', r). ``q_span`` > 1
     is the multi-position speculative-verify layout."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pool, v_pool)):
+        raise RuntimeError(
+            "paged_attention_op has no backward: it takes no input that "
+            "requires grad")
     _kernel.check_shapes(q, k_pool, v_pool, table, ctx_len, q_span)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, table, ctx_len,

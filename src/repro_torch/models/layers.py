@@ -1,14 +1,15 @@
 """Shared low-level layers: norms, rotary embeddings, activations, and the
 CUR-aware weight application used by every matmul of the model.
 
-A "weight" in the param tree is either a plain tensor or a CUR dict made
+A "weight" in the param tree is either a plain tensor, a CUR dict made
 by ``repro_torch.core.compress``:
 
     {"C": (m, r), "U0": (r, r), "dU": (r, r), "R": (r, n)}     # healing form
     {"CU": (m, r), "R": (r, n)}                                # folded form
 
-``apply_w(x, w)`` dispatches on the form, so compressed and dense layers
-share all model code.
+or a PEFT adapter made by ``repro_torch.core.peft`` (``{"base": W, ...}``
+with LoRA, MoRA or CURLoRA leaves). ``apply_w(x, w)`` dispatches on the
+form, so compressed, adapted and dense layers share all model code.
 """
 from __future__ import annotations
 
@@ -45,12 +46,35 @@ def use_cur_kernel(m: int, rk: int, n: int, M: Optional[int] = None,
             and m % 8 == 0 and n % 8 == 0)
 
 
+def is_adapter(w) -> bool:
+    return isinstance(w, dict) and "base" in w
+
+
+def _mora_apply(x, M, n_out: int):
+    """MoRA (Jiang et al. 2024) square-matrix adapter: compress input
+    segments by summation, apply M (r x r), tile the output to n_out."""
+    r = M.shape[0]
+    m = x.shape[-1]
+    xp = F.pad(x, (0, (-m) % r))
+    xc = xp.reshape(xp.shape[:-1] + (-1, r)).sum(dim=-2)
+    y = xc @ M.to(x.dtype)
+    reps = -(-n_out // r)
+    return y.repeat((1,) * (y.dim() - 1) + (reps,))[..., :n_out]
+
+
 def apply_w(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ W for dense or CUR-factorized W. x: (..., m) -> (..., n)."""
-    if isinstance(w, dict) and "base" in w:
-        raise NotImplementedError(
-            "PEFT adapters (LoRA/MoRA/CURLoRA) are ported with the "
-            "healing/training slice")
+    """x @ W for dense, CUR-factorized, or PEFT-adapted W.
+    x: (..., m) -> (..., n)."""
+    if is_adapter(w):
+        y = apply_w(x, w["base"])
+        if "lora_A" in w:                      # LoRA: + x A B
+            y = y + (x @ w["lora_A"].to(x.dtype)) @ w["lora_B"].to(x.dtype)
+        elif "mora" in w:                      # MoRA square adapter
+            y = y + _mora_apply(x, w["mora"], y.shape[-1])
+        elif "cC" in w:                        # CURLoRA: + x C U R (U trained)
+            y = y + ((x @ w["cC"].to(x.dtype))
+                     @ w["cU"].to(x.dtype)) @ w["cR"].to(x.dtype)
+        return y
     if not is_cur(w):
         return x @ w
     if "CU" in w:

@@ -10,6 +10,10 @@ has the same layout (per group, leaves stacked on a leading ``repeats``
 axis); :func:`prefill` and :func:`decode_step` write it in place through
 per-layer views and return it.
 
+:func:`forward`, :func:`forward_hidden` and :func:`loss_fn` are
+differentiable, as the JAX functions are (training and healing take their
+gradients); inference callers run them under their own ``no_grad``.
+
 This slice ports the attention (ATTN / ATTN_LOCAL) + MLP families; MoE and
 Mamba blocks raise ``NotImplementedError``.
 """
@@ -21,7 +25,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.bridge import tree_map
+from repro_torch.bridge import flatten_up_to, tree_map, unflatten_as
 from repro_torch.configs.base import (
     ATTN, ATTN_LOCAL, MAMBA, MLP, MOE, ModelConfig)
 from repro_torch.models import attention as attn
@@ -167,15 +171,25 @@ def _positions(x):
                         device=x.device)[None].expand(B, S)
 
 
+def _unstack(tree, reps: int):
+    """``reps`` trees of views, one per repeat of the stacked ``tree``.
+    Each leaf is split once (``unbind``), so autograd sums the repeats'
+    gradients into the stacked leaf with one ``stack`` instead of one
+    zero-filled copy of the whole leaf per repeat."""
+    leaves = flatten_up_to(tree, tree)
+    cols = [(None,) * reps if a is None else a.unbind(0) for a in leaves]
+    return [unflatten_as(tree, [c[r] for c in cols]) for r in range(reps)]
+
+
 def iter_layer_params(params, cfg):
     """Yield (layer_idx, spec, per-layer param dict) in network order; the
     per-layer leaves are views into the stacked ones."""
     li = 0
     for gi, (pattern, reps) in enumerate(cfg.groups):
-        gp = params["groups"][gi]
+        views = [_unstack(p, reps) for p in params["groups"][gi]]
         for r in range(reps):
             for pi, spec in enumerate(pattern):
-                yield li, spec, tree_map(lambda a, r=r: a[r], gp[pi])
+                yield li, spec, views[pi][r]
                 li += 1
 
 
@@ -186,7 +200,6 @@ def apply_groups(x, params, cfg, positions):
     return x
 
 
-@torch.no_grad()
 def forward(params, cfg: ModelConfig, batch):
     """Full-sequence forward -> logits (B, S, V)."""
     x = _embed(params, cfg, batch)
@@ -196,7 +209,6 @@ def forward(params, cfg: ModelConfig, batch):
     return _unembed(params, cfg, x)
 
 
-@torch.no_grad()
 def forward_hidden(params, cfg: ModelConfig, batch):
     """Forward that also returns every block's output hidden state.
     Returns (logits, hidden) with hidden (L+1, B, S, D): the embedding
@@ -212,7 +224,6 @@ def forward_hidden(params, cfg: ModelConfig, batch):
     return _unembed(params, cfg, x), hidden
 
 
-@torch.no_grad()
 def loss_fn(params, cfg, batch):
     """Mean next-token cross-entropy (masked mean when ``batch`` has a
     ``mask``)."""

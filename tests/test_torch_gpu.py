@@ -532,3 +532,86 @@ def test_checkpoint_roundtrip_on_card(gen, tmp_path):
         assert torch.equal(back["groups"][0]["CU"].cpu(),
                            tree["groups"][0]["CU"].cpu())
         assert back["step"].dtype == torch.int32 and int(back["step"]) == 3
+
+
+# ---------------------------------------------------------------------------
+# training and healing on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,G,S,d,win", [
+    (1, 2, 1, 40, 16, 0), (2, 1, 2, 33, 32, 0), (1, 2, 4, 72, 64, 8),
+    (1, 1, 2, 130, 128, 0), (2, 2, 2, 64, 32, 8)])
+def test_flash_attention_fn_gradients_match_ref(gen, B, K, G, S, d, win,
+                                                dtype):
+    """FlashAttentionFn on the card: the kernel's forward, the plain
+    backward; dq / dk / dv against autograd through the plain forward."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    q = _randn(gen, (B, K * G, S, d), dtype)
+    k = _randn(gen, (B, K, S, d), dtype)
+    v = _randn(gen, (B, K, S, d), dtype)
+    do = _randn(gen, (B, K * G, S, d), dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = fa.launches
+    o = flash_attention_op(*leaves, window=win, scale=0.3)
+    assert fa.launches == before + 1 and o.grad_fn is not None
+    got = torch.autograd.grad(o, leaves, do)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(flash_attention_ref(
+        *ref_leaves, window=win, scale=0.3), ref_leaves, do)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype
+        assert rel_err(g.cpu(), r.cpu()) < _TOL[dtype]
+
+
+def test_forward_only_ops_raise_under_grad_on_card(gen):
+    from repro_torch.kernels.cur_matmul.ops import cur_matmul_op
+    from repro_torch.kernels.paged_attention.ops import paged_attention_op
+    x, cu, r = (_randn(gen, s, torch.bfloat16)
+                for s in ((64, 128), (128, 16), (16, 128)))
+    cu.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cur_matmul_op(x, cu, r)
+    q, kp, vp, table, ctx = _paged_case(2, 2, 2, 16, 8, 4, 4,
+                                        torch.float32)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        paged_attention_op(q, kp, vp, table, ctx)
+    with torch.no_grad():
+        assert cur_matmul_op(x, cu, r).shape == (64, 128)
+
+
+def test_smoke_heal_step_card_equals_cpu(gen):
+    """One dU-only heal step of a healing-form SMOKE model (f32): the KD
+    loss and every dU gradient on the card (flash kernel under autograd)
+    against the CPU, 2e-5."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import CURConfig
+    from repro_torch.core import calibrate, compress_model
+    from repro_torch.core import heal
+    from repro_torch.dist import tree_flatten
+    from repro_torch.models import forward_hidden, init_params
+    cfg = get_smoke("llama3.1-8b")
+    params = init_params(0, cfg, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 65),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    sp, scfg, _ = compress_model(params, cfg, CURConfig(
+        r_max=8, n_compress_layers=2), calibrate(params, cfg, [batch]))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p, s = (tree_map(lambda t: t.to(dev), x) for x in (params, sp))
+        b = tree_map(lambda t: t.to(dev), batch)
+        tr, fr = heal.partition_params(s, heal.trainable_mask(s, "dU"))
+        with torch.no_grad():
+            t_log, t_hid = forward_hidden(p, cfg, b)
+        before = fa.launches
+        out[dev] = heal.value_and_grad(lambda t: heal.kd_loss_fn(
+            heal.combine_params(t, fr), scfg, b, t_log, t_hid), tr)
+        if dev == "cuda":
+            assert fa.launches - before == cfg.n_layers
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert rel_err(lg.cpu(), lc) < 2e-5
+    for a, b_ in zip(tree_flatten(gg), tree_flatten(gc)):
+        assert rel_err(a.cpu(), b_) < 2e-5

@@ -39,7 +39,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "testing.chaos", "attention.prefill",
                  "kernels.paged_attention.ops", "obs.metrics", "obs.trace",
                  "obs.export", "obs.loadgen", "obs.slo", "launch.serve",
-                 "dist.checkpoint", "serve.engine", "obs.torchprof"):
+                 "dist.checkpoint", "serve.engine", "obs.torchprof",
+                 "optim.adamw", "dist.compression", "train.train_loop",
+                 "core.heal", "core.peft", "zoo", "launch.train",
+                 "kernels.flash_attention.backward"):
         assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -132,6 +135,7 @@ class _FakeCuda:
     """Stands in for a CUDA tensor on a machine without one: it reports a
     CUDA device and carries a CPU tensor's shape and dtype."""
     is_cuda = True
+    requires_grad = False
     device = torch.device("cuda", 0)
 
     def __init__(self, t):
