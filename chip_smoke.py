@@ -25,14 +25,17 @@ nonzero:
               2 / 4, window 0 / 8, ragged S, f32 and bf16; cur_matmul_op
               and paged_attention_op raise under grad; the backward's time
               at the olmo-1b train and llama3.1-8b heal shapes beside
-              SDPA's backward
+              SDPA's backward; cur_matmul at the ranks a plan assigns (r
+              16 / 32 / 64 / 128 / 512 on the three full-width classes,
+              M 2048 and M 40, bf16)
   4. times    kernel, plain version and one library call at the main
               paths' shapes (median of 25 launches, CUDA events), beside
               the least time the card could take (bound), with achieved
               GB/s and TFLOP/s and the host's time per call; each
               kernel's registers and spills from the -Xptxas -v log;
               the verify shapes (paged_attention q_span 5, cur_matmul
-              M 40) on lines of their own
+              M 40) and the planned ranks (cur_matmul r 16 .. 512, M 2048
+              and 40, beside the torch.matmul chain) on lines of their own
   5. small    the folded forward at a small f32 size on the card against
               the same params on the CPU (plain versions), 2e-5; then
               that model served on the card and on the CPU, dense and
@@ -83,10 +86,13 @@ nonzero:
               logits against ``forward()`` (2e-2), kernels launched in
               its prefill, agreement with the Server; last a profiled
               decode window
-  8. split    device time by kernel (torch.profiler, after every timed
-              phase): cur_matmul per weight and pass against the
+  8. split    device time by kernel (after every timed phase; CUDA events
+              around calls queued behind a spin kernel, cur_matmul's
+              passes from torch.profiler, "not measured" when a capture
+              lost records): cur_matmul per weight and pass against the
               torch.matmul chain, flash_attention and paged_attention
-              against SDPA (also at the verify shape), and one traced
+              against SDPA (also at the verify shape), cur_matmul at the
+              planned ranks against the chain, and one traced
               folded perplexity pass (busy and idle share, top kernels);
               one speculative window of run (a) profiled by part (draft,
               verify, paged_attention at q_span 5) and its host syncs;
@@ -109,12 +115,34 @@ nonzero:
               perplexity trained / CURed (3 layers, r_max 64, folded,
               cur_matmul) / healed (40 steps), and the trained model's
               speculative accept rate at draft self:2, spec_k 4
+ 10. plan     (after 9, before 8) budget-driven planning: (a) plan_for_model
+              on phase 6's llama3.1-8b (its params, calibration and 10
+              layers, exact SVD, grid 4 .. 512) at the uniform
+              allocation's deployed params, greedy and dp: profile
+              seconds per class, allocate seconds, rank histograms, peak
+              memory; the greedy plan executed (every one of the 30
+              weights' profiled rel_err within 1e-4 of compress_model's),
+              its folded perplexity beside the uniform's and cur_matmul's
+              launches by rank; (b) a --budget-latency-ms plan at the
+              uniform allocation's H100 roofline ms (realized <=
+              requested); (c) cure --emit-draft's draft in memory
+              (--draft-budget-params 0.35 over all 30 interior layers),
+              its deployed fraction of the target, served on phase 7's
+              run-(a) workload at spec_k 4 (accept rate, tok/s beside run
+              (a)'s); (d) the plan CLI and cure --plan / --emit-draft at
+              --smoke on the card with --obs and --trace; (e)
+              progressive_cure on 9c's trained model (budget 0.3, 3
+              layers, 2 rounds, 20 heal steps) on the card and then, in a
+              process of its own (so that no timed part shares the host),
+              on the CPU (f32, the same tokens): the same layers, ranks, accept
+              flags and early stop, perplexities within 1e-3
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernel table.
 ``--phases 1,2,3`` runs only the phases named (for a first check of a new
-kernel; phase 9 without 6 makes llama3.1-8b's weights itself); the kernel
-table and the last line need every phase.
+kernel; phase 9 without 6 makes llama3.1-8b's weights itself, phase 10
+needs 6 and trains its REPRO model without 9); the kernel table and the
+last line need every phase.
 """
 import argparse
 import json
@@ -137,7 +165,7 @@ CUR_SHAPES = {"wq": (4096, 256, 4096), "wk": (4096, 256, 1024),
               "w_gate": (4096, 256, 14336)}   # (m, r, n) at r_max 256
 CUR_M = 2048                                  # 4 x 512 tokens
 FLASH_SHAPE = (4, 32, 8, 512, 128)            # B, H, K, S, d
-CURE_RUNS = 4                                 # 1 cold + 3 warm cure() runs
+CURE_RUNS = 3                                 # 1 cold + 2 warm cure() runs
 ENGINE_SHAPE = (8, 512, 64)                   # B, prompt, new (legacy engine)
 ENGINE_CHECK_STEPS = (1, 16, 63)              # decode steps held to forward()
 # cure()'s save stage (git-ignored; deleted at phase 6's end)
@@ -150,6 +178,17 @@ SPEC_K = 4                                    # draft tokens per window
 ZOO_STEPS = 300                               # phase 9c's zoo training
 VERIFY_SPANS = (2, SPEC_K + 1, 8)             # q_span = k + 1 at k 1, 4, 7
 VERIFY_M = 8 * (SPEC_K + 1)                   # verify rows: 8 slots x 5
+# cur_matmul ranks of a plan at full width (10a's grid 4 .. 512; 256 is
+# CUR_SHAPES' and 4 / 8 take the chain)
+PLAN_RANKS = (16, 32, 64, 128, 512)
+PLAN_R_MAX = 512                              # phase 10a's grid, 4 .. 512
+DRAFT_LAYERS = 30                             # phase 10c: every interior one
+# phase 10e: progressive_cure on the trained REPRO model (card and CPU)
+PROG = {"budget_kind": "params", "budget_value": 0.3, "n_layers": 3,
+        "rounds": 2, "heal_steps": 20}
+PROG_GAP = 1e-3                               # card vs CPU perplexity, rel
+# phase 10's files (git-ignored; deleted at its end)
+PLAN_DIR = os.path.join(ROOT, "build", "chip_smoke_plan")
 # phase 5's chaos plan (a repro_torch.testing.FaultPlan as JSON)
 CHAOS_PLAN = {"seed": 11, "faults": [
     {"kind": "transient_error", "start_step": 1, "end_step": 3,
@@ -241,8 +280,15 @@ def ptxas_report(name):
 
 
 def kernel_ms(fn, n=25):
-    """{device kernel name: mean ms per call of fn} over n calls under
-    torch.profiler, after a warm-up."""
+    """{device kernel name: device ms per call of fn} over n calls under
+    torch.profiler, after a warm-up; None when the capture lost records.
+
+    Each call is followed by one ``torch.cuda._sleep`` (a spin_kernel of
+    its own, left out of the result), so a capture that kept fewer than n
+    of them lost records and reads "not measured". In long runs captures
+    lose the records of some of their calls (7 or 14 of 25), whichever
+    kernels they hold, and idling the card at either end of the capture
+    does not prevent it; ``device_ms`` does not depend on the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -252,11 +298,52 @@ def kernel_ms(fn, n=25):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / n
-            for e in prof.key_averages()
+    rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+            and e.self_device_time_total > 0]
+    marks = sum(e.count for e in rows if "spin_kernel" in e.key)
+    if marks != n:
+        say(f"    (the profiler kept {marks} of {n} markers: not measured)")
+        return None
+    return {e.key: e.self_device_time_total / 1e3 / n for e in rows
+            if "spin_kernel" not in e.key}
+
+
+BACKLOG_CYCLES = 50_000_000     # one spin kernel, ~25 ms at the H100's clock
+
+
+def device_ms(fn, n=25):
+    """Median device ms of one call of fn by CUDA events around each call,
+    after a warm-up. The n calls are queued behind one long spin kernel,
+    so they run back to back on the card and no host launch gap falls
+    inside a call's events; if the host took longer to queue them than
+    the spin lasted, that is said."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    s0 = torch.cuda.Event(enable_timing=True)
+    s1 = torch.cuda.Event(enable_timing=True)
+    s0.record()
+    torch.cuda._sleep(BACKLOG_CYCLES)
+    s1.record()
+    t0 = time.perf_counter()
+    evs = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        evs.append((e0, e1))
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if queued_ms >= s0.elapsed_time(s1):
+        say(f"    (queueing took {queued_ms:.2f} ms, longer than the "
+            f"{s0.elapsed_time(s1):.2f} ms spin: host gaps may be counted)")
+    return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
 def host_ms(fn, n=50):
@@ -359,6 +446,9 @@ def phase_kernels():
     cur_cases = [(M,) + CUR_SHAPES[k] + (dt, True)
                  for M in (CUR_M, VERIFY_M)
                  for k in CUR_SHAPES for dt in (bf16, f32)]
+    # the ranks a plan assigns at full width (phase 10), bf16
+    cur_cases += [(M, m, r, n, bf16, True) for M in (CUR_M, VERIFY_M)
+                  for (m, _, n) in CUR_SHAPES.values() for r in PLAN_RANKS]
     cur_cases += [(96, 100, 24, 200, f32, False),
                   (96, 100, 24, 200, bf16, False),    # fused body (m 100)
                   (512, 1024, 16, 1024, bf16, False),
@@ -825,6 +915,7 @@ def phase_times():
                                        "library_ms": lib, "bound_ms": bnd,
                                        "bound_by": by}
     times_verify(gen)
+    times_plan_ranks(gen)
     from repro_torch.kernels import _build
     for name in _build.KERNELS:
         for fn, regs, st, ld in ptxas_report(name):
@@ -892,11 +983,40 @@ def times_verify(gen):
         f"{tot['bound']:.4f} ms")
 
 
-def _total(times):
-    """The summed device time of kernel_ms's result, or why there is none."""
-    if not times:
+def times_plan_ranks(gen):
+    """Phase 4's lines of the ranks a plan assigns (phase 10): cur_matmul
+    at r 16 .. 512 on the full-width classes at M 2048 and M 40, kernel
+    and host time beside the bound and the torch.matmul chain."""
+    import torch
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    bf16 = torch.bfloat16
+    for M in (CUR_M, VERIFY_M):
+        for name, (m, _, n) in CUR_SHAPES.items():
+            for r in PLAN_RANKS:
+                x = _randn(gen, (M, m), bf16)
+                cu = _randn(gen, (m, r), bf16, m ** -0.5)
+                rr = _randn(gen, (r, n), bf16, r ** -0.5)
+                ms = median_ms(lambda: cm.cur_matmul(x, cu, rr))
+                lib = median_ms(lambda: torch.matmul(torch.matmul(x, cu),
+                                                     rr))
+                host = host_ms(lambda: cm.cur_matmul(x, cu, rr))
+                nbytes = 2 * (M * m + m * r + r * n + M * n)
+                bnd, by = bound_ms(nbytes, 2 * M * r * (m + n))
+                say(f"  cur_matmul plan rank {name} M={M} m={m} r={r} n={n}"
+                    f" ({cm.plan(M, m, r, n, bf16).body}): kernel "
+                    f"{ms:.4f} ms, host {host:.4f} ms, bound {bnd:.4f} ms "
+                    f"({by}), chain {lib:.4f} ms")
+
+
+def _passes(parts):
+    """cur_matmul's kernel_ms result by pass with their sum, or why there
+    is none."""
+    if parts is None:
+        return "not measured (the profiler lost records)"
+    if not parts:
         return "not measured (the profiler saw no kernel)"
-    return f"{sum(times.values()):.4f} ms"
+    return ", ".join(f"{_pass_name(k)} {v:.4f} ms" for k, v in parts.items()
+                     ) + f" (sum {sum(parts.values()):.4f} ms)"
 
 
 def _pass_name(kernel):
@@ -1410,7 +1530,8 @@ def phase_main():
         raise SystemExit(f"main path checks failed: {bad}")
     return ({"cur_matmul": main_cur + fold_cur,
              "flash_attention": main_flash + fold_flash,
-             "paged_attention": main_paged}, run, (draft, draft_cfg))
+             "paged_attention": main_paged}, run, (draft, draft_cfg),
+            ppl_cur)
 
 
 def _prefill_logits(params, cfg, pc, cache, prompt):
@@ -1535,14 +1656,15 @@ def phase_serve(run, draft):
             torch.cuda.empty_cache()
     if bad:
         raise SystemExit(f"serve checks failed: {bad}")
-    for k, v in serve_spec(run, workloads, base, draft).items():
+    spec_launches, stats_a = serve_spec(run, workloads, base, draft)
+    for k, v in spec_launches.items():
         launches[k] += v
     for k, v in serve_chaos(params, cfg, workloads["A"]).items():
         launches[k] += v
     for k, v in serve_legacy(params, cfg).items():
         launches[k] += v
     profile_decode(params, cfg, workloads["B"])
-    return launches
+    return launches, stats_a
 
 
 def _drive_sampled(srv, wl, temperature, top_p):
@@ -1692,6 +1814,7 @@ def serve_spec(run, workloads, base, draft):
             agree = "agreement with spec-off: not compared (sampled)"
         if label.startswith("(a)"):
             run_a = (toks, st["spec_accept_rate"])
+            stats_a = st
         say(f"  {label}: {len(wl)} requests, {st['tokens_generated']} "
             f"tokens, {st['tokens_per_s']:.1f} tok/s (busy "
             f"{st['tokens_per_s_busy']:.1f}); TTFT p50 "
@@ -1727,7 +1850,7 @@ def serve_spec(run, workloads, base, draft):
         torch.cuda.empty_cache()
     if bad:
         raise SystemExit(f"speculative serve checks failed: {bad}")
-    return launches
+    return launches, stats_a
 
 
 def serve_legacy(params, cfg):
@@ -1898,18 +2021,19 @@ def _zero_counts():
 def phase_train(run):
     """Phase 9: training and healing at full width, then the trained-weights
     pipeline. Each part is driven with the counts set to 0 just before it
-    and read just after. Returns the summed counts and 9b's heal step
-    (for phase 8's trace)."""
+    and read just after. Returns the summed counts, 9b's heal step (for
+    phase 8's trace) and 9c's trained model (for phase 10e)."""
     import torch
     say("== phase 9: training and healing on the card")
     total = {"cur_matmul": 0, "flash_attention": 0, "paged_attention": 0}
-    failed, heal_case = [], None
-    for part in (train_olmo, lambda: heal_llama(run), trained_repro):
+    failed, kept = [], {}
+    for name, part in (("9a", train_olmo), ("9b", lambda: heal_llama(run)),
+                       ("9c", trained_repro)):
         torch.cuda.synchronize()
         _zero_counts()
         out = part()
         if isinstance(out, tuple):
-            out, heal_case = out
+            out, kept[name] = out
         failed += out
         torch.cuda.synchronize()
         for k, v in _counts().items():
@@ -1918,7 +2042,7 @@ def phase_train(run):
     say(f"  phase 9 launches {json.dumps(total)}")
     if failed:
         raise SystemExit(f"training checks failed: {failed}")
-    return total, heal_case
+    return total, kept.get("9b"), kept.get("9c")
 
 
 def train_olmo():
@@ -2211,14 +2335,478 @@ def trained_repro():
                                 for t in tree_flatten(tr)),
     }
     return [f"9c: {k}" for k, ok in checks.items()
-            if not ok]
+            if not ok], (params, cfg)
+
+
+def _sub_profile(prof, r_top):
+    """``prof`` cut to the grid ranks <= r_top: DEIM's prefix consistency
+    makes each cut curve the one a profile on the smaller grid gives."""
+    import dataclasses
+    curves = []
+    for c in prof.curves:
+        k = sum(1 for r in c.grid if r <= r_top)
+        curves.append(dataclasses.replace(
+            c, grid=c.grid[:k], rel_err=c.rel_err[:k],
+            func_err=c.func_err[:k], bound=c.bound[:k]))
+    return dataclasses.replace(
+        prof, curves=curves, grid=tuple(r for r in prof.grid if r <= r_top))
+
+
+def _histogram(ranks):
+    out = {}
+    for r in ranks.values():
+        out[r] = out.get(r, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def _by_rank(fn):
+    """fn() with cur_matmul's launches tallied by rank (the kernel's own
+    ``launches`` count is untouched). Returns (fn's result, tally)."""
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    real, tally = cm.cur_matmul, {}
+
+    def tallied(x, cu, r, *a, **kw):
+        n0 = cm.launches
+        y = real(x, cu, r, *a, **kw)
+        if cm.launches > n0:
+            tally[cu.shape[1]] = tally.get(cu.shape[1], 0) + cm.launches - n0
+        return y
+
+    cm.cur_matmul = tallied
+    try:
+        out = fn()
+    finally:
+        cm.cur_matmul = real
+    return out, dict(sorted(tally.items()))
+
+
+def _class_seconds(fn):
+    """fn() with the obs registry on: (fn's result, {"MxNrR": (weights,
+    seconds per weight)} from repro_compress_class_s). The registry is off
+    and empty again after."""
+    from repro_torch import obs
+    obs.default_registry().reset()
+    obs.enable()
+    try:
+        out = fn()
+        snap = obs.default_registry().snapshot()
+    finally:
+        obs.disable()
+        obs.default_registry().reset()
+    kids = snap.get("repro_compress_class_s", {}).get("children", {})
+    return out, {k.split("=", 1)[1]: (v["count"], round(v["mean"], 4))
+                 for k, v in kids.items()}
+
+
+def _deim_seconds(shapes, r):
+    """Seconds of one DEIM sweep at rank r over a (k, m, r) orthonormal
+    stack, for each (k, m) in shapes."""
+    import torch
+    from repro_torch.core.deim import deim
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for k, m in shapes:
+        V = torch.linalg.qr(torch.randn((k, m, r), generator=gen,
+                                        device="cuda"))[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        deim(V)
+        torch.cuda.synchronize()
+        out[f"({k}, {m}, {r})"] = round(time.perf_counter() - t0, 3)
+    return out
+
+
+def _prog_summary(res, seconds):
+    return {"rounds": [{"round": r.round, "layers": r.layers,
+                        "ranks": r.ranks, "accepted": r.accepted,
+                        "ppl_compressed": r.ppl_compressed, "ppl": r.ppl}
+                       for r in res.rounds],
+            "early_stopped": res.early_stopped,
+            "ppl_initial": res.ppl_initial, "ppl_final": res.ppl_final,
+            "seconds": seconds}
+
+
+def cpu_progressive(in_path, out_path):
+    """Phase 10e's CPU run, in a process of its own (started after the
+    card's run, so that it shares the host with no timed part):
+    ``progressive_cure`` on the inputs saved at ``in_path``, its summary
+    written to ``out_path`` as JSON."""
+    import torch
+    from repro_torch.configs.base import CURConfig
+    from repro_torch.plan import progressive_cure
+    torch.set_num_threads(6)
+    d = torch.load(in_path, weights_only=False)
+    t0 = time.perf_counter()
+    res = progressive_cure(
+        d["params"], d["cfg"], calib_batches=d["calib"],
+        eval_batches=d["eval"], heal_batch_at=d["heal"].__getitem__,
+        cur_cfg=CURConfig(r_max=64, fold_u=False), **PROG)
+    with open(out_path, "w") as f:
+        json.dump(_prog_summary(res, time.perf_counter() - t0), f)
+    return 0
+
+
+def _prog_inputs(zoo_model):
+    """Phase 10e's inputs on the card: the trained model, 2 calibration
+    batches, 2 eval batches and the heal stream (the plan CLI's --zoo
+    batches), each made once so that the CPU run gets the same tokens."""
+    from repro_torch import zoo
+    from repro_torch.data.tokens import SyntheticLM
+    params, cfg = zoo_model
+    ds = SyntheticLM(zoo.data_config(cfg, seed=1), "cuda")
+    heal = SyntheticLM(zoo.data_config(cfg, seed=2), "cuda")
+    return {"params": params, "cfg": cfg,
+            "calib": [ds.batch_at(i) for i in range(2)],
+            "eval": zoo.eval_batches(cfg, n=2, device="cuda"),
+            "heal": [heal.batch_at(i)
+                     for i in range(PROG["rounds"] * PROG["heal_steps"])]}
+
+
+def _start_cpu_progressive(inputs):
+    """Save phase 10e's inputs on the host and start the CPU run."""
+    import torch
+    from repro_torch.bridge import tree_map
+    cpu = {k: (tree_map(lambda t: t.cpu(), v) if k != "cfg" else v)
+           for k, v in inputs.items()}
+    src = os.path.join(PLAN_DIR, "prog_in.pt")
+    out = os.path.join(PLAN_DIR, "prog_cpu.json")
+    torch.save(cpu, src)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-progressive",
+         src, out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, out
+
+
+def plan_full_width(run, ppl_uniform):
+    """10a: ``plan_for_model`` on phase 6's llama3.1-8b (its params and
+    calibration, its 10 layers) at the uniform allocation's deployed
+    params, exact SVD, grid 4 .. 512 (on the default grid 4 .. 256 the
+    uniform budget is the grid's top, so the plan is the uniform one);
+    greedy and dp; the greedy plan executed and its folded perplexity."""
+    import torch
+    from repro_torch.configs.base import CURConfig
+    from repro_torch.core import compress_model
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.plan import allocate, default_grid, plan_for_model
+    from repro_torch.train.evaluate import perplexity
+    rep = run.report
+    budget = float(rep["params"]["after_deployed"])
+    ccfg = CURConfig(r_max=PLAN_R_MAX, n_compress_layers=10, svd="exact",
+                     fold_u=True, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    plan, prof = plan_for_model(
+        run.params, run.cfg, ccfg, run.calib, budget_kind="params",
+        budget_value=budget, n_layers=10, grid=default_grid(PLAN_R_MAX),
+        solver="greedy", arch=run.cfg.name)
+    t_plan = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    dp = allocate(prof, "params", budget, arch=run.cfg.name, solver="dp",
+                  fold_u=True, dtype_bytes=2, seed=0)
+    sub = _sub_profile(prof, 256)
+    uni = allocate(sub, "params", budget, solver="greedy", fold_u=True,
+                   dtype_bytes=2)
+    per_class = {k: round(v, 3) for k, v in prof.class_seconds.items()}
+    say(f"  10a plan_for_model llama3.1-8b, {len(prof.curves)} weights in "
+        f"layers {plan.layers}, exact SVD, grid {list(prof.grid)}, budget "
+        f"{int(budget)} params (the uniform r_max 256 allocation's, "
+        f"fraction {rep['plan']['budget']['realized_fraction']}): "
+        f"{t_plan:.3f} s (profile {prof.seconds:.3f} s; per class "
+        f"{json.dumps(per_class)})"
+        f"; peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB "
+        f"held before)")
+    for label, p in (("greedy", plan), ("dp", dp),
+                     ("greedy on the 4 .. 256 grid", uni)):
+        say(f"    {label}: allocate {p.predicted['solve_seconds']} s, "
+            f"ranks {json.dumps(_histogram(p.ranks))}, realized "
+            f"{p.realized['params_after']:.0f} params (fraction "
+            f"{p.realized['fraction']}), objective "
+            f"{p.predicted['objective']:.6g}, feasible {p.feasible}")
+    say(f"    DEIM sweeps at r {PLAN_R_MAX} (s): "
+        f"{json.dumps(_deim_seconds(((10, 4096), (10, 1024)), PLAN_R_MAX))}")
+    t1 = time.perf_counter()
+    (pparams, pcfg, pinfo), by_class = _class_seconds(
+        lambda: compress_model(run.params, run.cfg,
+                               plan.to_cur_config(CURConfig()), run.calib,
+                               layers=plan.layers))
+    torch.cuda.synchronize()
+    t_exec = time.perf_counter() - t1
+    gaps = {}
+    for w in pinfo.weights:
+        c = prof.curve(f"{w.layer}:{w.name}")
+        gaps[c.key] = abs(float(c.rel_err[c.grid.index(w.rank)])
+                          - w.fro_err / w.fro_w)
+    worst = max(gaps, key=gaps.get)
+    ds = SyntheticLM(DataConfig(run.cfg.vocab_size, 512, 4, seed=1), "cuda")
+    evl = [ds.batch_at(1000 + i) for i in range(2)]
+    ppl_plan, tally = _by_rank(lambda: perplexity(pparams, pcfg, evl))
+    say(f"    greedy plan executed (compress_model, exact SVD): "
+        f"{t_exec:.3f} s (weights, s per weight by class "
+        f"{json.dumps(by_class)}); profiled vs executed rel_err over "
+        f"{len(gaps)} weights: worst |gap| {gaps[worst]:.3e} ({worst})")
+    say(f"    folded perplexity planned {ppl_plan:.6f} vs uniform "
+        f"{ppl_uniform:.6f} (phase 6, randomized SVD); cur_matmul launches "
+        f"by rank in that pass {json.dumps(tally)}")
+    checks = {
+        "30 planned weights": len(plan.ranks) == 30,
+        "phase 6's layers": plan.layers == rep["layers_compressed"],
+        "every executed rank the plan's": {
+            f"{w.layer}:{w.name}": w.rank for w in pinfo.weights}
+            == plan.ranks,
+        "every profiled rel_err within 1e-4 of the executed":
+            len(gaps) == 30 and gaps[worst] < 1e-4,
+        "greedy and dp feasible": plan.feasible and dp.feasible,
+        "the 4 .. 256 grid gives the uniform plan":
+            set(uni.ranks.values()) == {256},
+        "planned perplexity finite": math.isfinite(ppl_plan),
+        "cur_matmul launched": sum(tally.values()) > 0,
+    }
+    del pparams
+    return [f"10a: {k}" for k, ok in checks.items() if not ok], prof
+
+
+def plan_latency(prof):
+    """10b: a --budget-latency-ms allocation at the H100 roofline ms of
+    the uniform r 256 allocation (folded, bf16), on 10a's profile."""
+    from repro_torch.plan import allocate, weight_cost
+    ms = sum(weight_cost(c.shape[0], c.shape[1], 256, "latency_ms",
+                         fold_u=True, dtype_bytes=2) for c in prof.curves)
+    bad = []
+    for solver in ("greedy", "dp"):
+        p = allocate(prof, "latency_ms", ms, solver=solver, fold_u=True,
+                     dtype_bytes=2)
+        got = p.realized["latency_ms_after"]
+        say(f"  10b latency budget {ms:.6f} ms (H100 roofline, uniform r "
+            f"256) {solver}: realized {got} ms, ranks "
+            f"{json.dumps(_histogram(p.ranks))}, params fraction "
+            f"{p.realized['params_after'] / p.realized['params_before']:.6f}"
+            f", allocate {p.predicted['solve_seconds']} s")
+        if not (p.feasible and got <= ms * (1 + 1e-6)):
+            bad.append(f"10b: {solver} realized {got} > requested {ms}")
+    return bad
+
+
+def plan_draft(run, stats_a):
+    """10c: cure --emit-draft's draft (``build_draft``) held in memory:
+    --draft-budget-params 0.35 over all 30 interior layers (r_max 256,
+    randomized SVD, cure's defaults); its deployed fraction of the
+    target; served on phase 7's run-(a) workload at spec_k 4."""
+    import torch
+    from repro_torch.launch import cure as cure_mod
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serving import PagedConfig, Server
+    args = cure_mod.parser().parse_args([
+        "--arch", "llama3.1-8b", "--layers", "10", "--r-max", "256",
+        "--emit-draft", "--draft-layers", str(DRAFT_LAYERS),
+        "--draft-budget-params", "0.35", "--device", "cuda"])
+    t0 = time.perf_counter()
+    (dparams, dcfg, dplan, dinfo), by_class = _class_seconds(
+        lambda: cure_mod.build_draft(run.params, run.cfg, run.calib, args))
+    torch.cuda.synchronize()
+    t_draft = time.perf_counter() - t0
+    total = run.cfg.param_count()
+    frac = (total - dinfo.params_saved) / total
+    today = (total - run.report["params"]["saved_deployed"]) / total
+    stats_a = stats_a or {"spec_accept_rate": float("nan"),
+                          "tokens_per_s": float("nan"),
+                          "tpot_p50_s": float("nan")}   # phase 7 not run
+    say(f"  10c draft (build_draft, {len(dinfo.layers)} layers, "
+        f"{len(dinfo.weights)} weights) in {t_draft:.3f} s: ranks "
+        f"{json.dumps(_histogram(dplan.ranks))}, targeted fraction "
+        f"{dplan.realized['fraction']} (budget 0.35), deployed "
+        f"{total - dinfo.params_saved} of {total} params = {frac:.4f} of "
+        f"the target (phase 6's CURed model as the draft: {today:.4f}); "
+        f"its compress (randomized SVD) by class: weights, s per weight "
+        f"{json.dumps(by_class)}")
+    wl = _workloads(run.cfg.vocab_size)["B"]
+    max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
+    pc = PagedConfig.sized_for(max_len, 8, block_size=16)
+    srv = Server(run.params, run.cfg, pc, max_concurrency=8,
+                 draft_params=dparams, draft_cfg=dcfg, spec_k=SPEC_K,
+                 device="cuda")
+    finished, st = run_continuous(srv, wl, verbose=False)
+    torch.cuda.synchronize()
+    say(f"    served (workload B, dense pool, original target, spec_k "
+        f"{SPEC_K}): accept rate {st['spec_accept_rate']:.4f} over "
+        f"{st['n_spec_windows']} windows, {st['tokens_per_s']:.1f} tok/s, "
+        f"TPOT p50 {st['tpot_p50_s'] * 1e3:.2f} ms; run (a) (phase 7, "
+        f"phase 6's CURed model as the draft): accept rate "
+        f"{stats_a['spec_accept_rate']:.4f}, "
+        f"{stats_a['tokens_per_s']:.1f} tok/s, TPOT p50 "
+        f"{stats_a['tpot_p50_s'] * 1e3:.2f} ms")
+    checks = {
+        "30 draft layers": len(dinfo.layers) == DRAFT_LAYERS,
+        "draft plan feasible at 0.35": dplan.feasible
+        and dplan.realized["fraction"] <= 0.35,
+        "draft below phase 6's CURed model": frac < today,
+        "every request finished": len(finished) == len(wl),
+        "speculative windows ran": st["n_spec_windows"] > 0,
+    }
+    del srv, dparams
+    torch.cuda.empty_cache()
+    return [f"10c: {k}" for k, ok in checks.items() if not ok]
+
+
+def plan_clis():
+    """10d: the plan CLI and cure --plan (with --emit-draft) at --smoke on
+    the card, both with --obs and --trace."""
+    from repro_torch import obs
+    from repro_torch.launch import cure as cure_mod
+    from repro_torch.launch import plan as plan_cli
+    d = os.path.join(PLAN_DIR, "cli")
+    path = os.path.join(d, "plan.json")
+    smoke = ["--arch", "llama3.1-8b", "--smoke", "--layers", "1",
+             "--calib-len", "16", "--device", "cuda", "--obs", "--trace"]
+    try:
+        plan = plan_cli.main(smoke + [
+            "--budget-params", "0.4", "--out", path, "--obs-out",
+            os.path.join(d, "obs_plan")])
+        rep = cure_mod.main(smoke + [
+            "--plan", path, "--emit-draft", "--ckpt-dir",
+            os.path.join(d, "ck"), "--obs-out", os.path.join(d, "obs_cure")])
+    finally:
+        obs.disable()
+        obs.default_registry().reset()
+    with open(os.path.join(d, "obs_cure", "metrics.json")) as f:
+        names = sorted(n for n in json.load(f) if n.startswith(
+            "repro_compress_"))
+    with open(os.path.join(d, "obs_cure", "trace.json")) as f:
+        spans = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e["ph"] == "X"]
+    say(f"  10d plan CLI -> cure --plan on the card: ranks "
+        f"{json.dumps(plan.ranks)} -> {json.dumps(rep['plan']['ranks'])}; "
+        f"metrics {names}; trace spans {spans}")
+    checks = {
+        "cure --plan gives the plan's ranks": rep["plan"]["ranks"]
+        == plan.ranks,
+        "the plan CLI wrote trace.json and metrics.json": all(
+            os.path.exists(os.path.join(d, "obs_plan", f))
+            for f in ("trace.json", "metrics.json")),
+        "the repro_compress_* metrics": len(names) >= 6,
+        "the stage spans": spans == ["init", "calibrate", "plan",
+                                     "compress", "fold", "save", "draft",
+                                     "generate"],
+        "the draft saved": os.path.exists(os.path.join(
+            d, "ck", "draft", "plan.json")),
+    }
+    return [f"10d: {k}" for k, ok in checks.items() if not ok]
+
+
+def plan_progressive(inputs):
+    """10e: ``progressive_cure`` on 9c's trained REPRO model (budget 0.3,
+    3 layers, 2 rounds, 20 heal steps) on the card, then the CPU run on
+    the same tokens in a process of its own."""
+    import torch
+    from repro_torch.configs.base import CURConfig
+    from repro_torch.plan import progressive_cure
+    t0 = time.perf_counter()
+    res = progressive_cure(
+        inputs["params"], inputs["cfg"], calib_batches=inputs["calib"],
+        eval_batches=inputs["eval"], heal_batch_at=inputs["heal"].__getitem__,
+        cur_cfg=CURConfig(r_max=64, fold_u=False), **PROG)
+    torch.cuda.synchronize()
+    card = _prog_summary(res, time.perf_counter() - t0)
+    cpu_proc, cpu_out = _start_cpu_progressive(inputs)
+    try:
+        log, _ = cpu_proc.communicate(timeout=900)
+    finally:
+        if cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.wait()
+    if cpu_proc.returncode != 0:
+        return [f"10e: the CPU run failed: {log[-2000:]}"]
+    with open(cpu_out) as f:
+        cpu = json.load(f)
+    say(f"  10e progressive_cure ({inputs['cfg'].name}, budget "
+        f"{PROG['budget_value']}, {PROG['n_layers']} layers, "
+        f"{PROG['rounds']} rounds, {PROG['heal_steps']} heal steps): card "
+        f"{card['seconds']:.3f} s, CPU {cpu['seconds']:.3f} s (6 threads, "
+        f"after the card's run)")
+    gaps = []
+    for key in ("ppl_initial", "ppl_final"):
+        gaps.append(abs(card[key] - cpu[key]) / cpu[key])
+        say(f"    {key}: card {card[key]:.6f} CPU {cpu[key]:.6f} rel gap "
+            f"{gaps[-1]:.3e}")
+    for a, b in zip(card["rounds"], cpu["rounds"]):
+        for key in ("ppl_compressed", "ppl"):
+            gaps.append(abs(a[key] - b[key]) / b[key])
+        say(f"    round {a['round']}: layers {a['layers']} / {b['layers']}, "
+            f"ranks {json.dumps(a['ranks'])} / {json.dumps(b['ranks'])}, "
+            f"accepted {a['accepted']} / {b['accepted']}; ppl compressed "
+            f"{a['ppl_compressed']:.6f} / {b['ppl_compressed']:.6f}, healed "
+            f"{a['ppl']:.6f} / {b['ppl']:.6f} (card / CPU)")
+    strip = [{k: r[k] for k in ("round", "layers", "ranks", "accepted")}
+             for r in card["rounds"]]
+    checks = {
+        "layers, ranks and accept flags card == CPU": strip == [
+            {k: r[k] for k in ("round", "layers", "ranks", "accepted")}
+            for r in cpu["rounds"]],
+        "early stop card == CPU": card["early_stopped"]
+        == cpu["early_stopped"],
+        "rounds ran": len(card["rounds"]) > 0,
+        f"perplexity gaps card vs CPU <= {PROG_GAP:g}": max(gaps)
+        <= PROG_GAP,
+    }
+    return [f"10e: {k}" for k, ok in checks.items() if not ok]
+
+
+def phase_plan(run, ppl_uniform, stats_a, zoo_model):
+    """Phase 10: budget-driven planning on the card. Each part is driven
+    with the counts set to 0 just before it and read just after; 10e's CPU
+    run follows its card run in a process of its own."""
+    import shutil
+    import torch
+    say("== phase 10: plan (sensitivity profile -> allocate -> plan "
+        "execution, on the card)")
+    shutil.rmtree(PLAN_DIR, ignore_errors=True)
+    os.makedirs(PLAN_DIR)
+    if zoo_model is None:              # phase 9 not run: train it here
+        from repro_torch import zoo
+        d = os.path.join(ROOT, "build", "chip_smoke_zoo")
+        shutil.rmtree(d, ignore_errors=True)
+        zoo_model = zoo.get_trained_repro(ZOO_STEPS, device="cuda",
+                                          zoo_dir=d)
+        shutil.rmtree(d)
+    inputs = _prog_inputs(zoo_model)
+    total = {"cur_matmul": 0, "flash_attention": 0, "paged_attention": 0}
+    failed, prof = [], None
+    try:
+        for part in ("a", "b", "c", "d", "e"):
+            torch.cuda.synchronize()
+            _zero_counts()
+            if part == "a":
+                out, prof = plan_full_width(run, ppl_uniform)
+            elif part == "b":
+                out = plan_latency(prof)
+            elif part == "c":
+                out = plan_draft(run, stats_a)
+            elif part == "d":
+                out = plan_clis()
+            else:
+                out = plan_progressive(inputs)
+            torch.cuda.synchronize()
+            n = _counts()
+            say(f"    10{part} launches {json.dumps(n)}")
+            for k, v in n.items():
+                total[k] += v
+            failed += out
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(PLAN_DIR, ignore_errors=True)
+    say(f"  phase 10 launches {json.dumps(total)}")
+    if failed:
+        raise SystemExit(f"plan checks failed: {failed}")
+    return total
 
 
 def phase_split(run, heal_case=None):
-    """Device time by kernel (torch.profiler), run last so that no profiler
-    window precedes a timed phase: cur_matmul per weight and pass and the
+    """Device time by kernel, run last so that no profiler window precedes
+    a timed phase: cur_matmul per weight (and by pass) and the
     torch.matmul chain, flash_attention and paged_attention and SDPA at
-    the main shapes (phase 4's); then
+    the main shapes (phase 4's), by ``device_ms``; then
     one folded perplexity pass of phase 6's model, its wall time against
     its kernels' busy time and the kernels that took the most."""
     import torch
@@ -2230,57 +2818,57 @@ def phase_split(run, heal_case=None):
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.train.evaluate import perplexity
-    say("== phase 8: device time by kernel (torch.profiler, bf16)")
+    say("== phase 8: device time by kernel (bf16; device ms per call by "
+        "CUDA events, the calls queued behind a spin kernel, median of 25; "
+        "cur_matmul by pass from torch.profiler)")
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16 = torch.bfloat16
-    for name, (m, r, n) in CUR_SHAPES.items():
-        x = _randn(gen, (CUR_M, m), bf16)
+
+    def cur_line(label, M, m, r, n):
+        x = _randn(gen, (M, m), bf16)
         cu = _randn(gen, (m, r), bf16, m ** -0.5)
         rr = _randn(gen, (r, n), bf16, r ** -0.5)
+        dev = device_ms(lambda: cm.cur_matmul(x, cu, rr))
         parts = kernel_ms(lambda: cm.cur_matmul(x, cu, rr))
-        lib = kernel_ms(lambda: torch.matmul(torch.matmul(x, cu), rr))
-        say(f"  cur_matmul {name}: " + ", ".join(
-            f"{_pass_name(k)} {v:.4f} ms" for k, v in parts.items())
-            + f" (sum {_total(parts)}); torch.matmul chain {_total(lib)} "
-            f"(mean of 25 calls)")
+        lib = device_ms(lambda: torch.matmul(torch.matmul(x, cu), rr))
+        say(f"  cur_matmul {label}: device {dev:.4f} ms; by pass "
+            f"{_passes(parts)}; torch.matmul chain {lib:.4f} ms")
+
+    for name, (m, r, n) in CUR_SHAPES.items():
+        cur_line(name, CUR_M, m, r, n)
     B, H, K, S, d = FLASH_SHAPE
     q = _randn(gen, (B, H, S, d), bf16)
     k = _randn(gen, (B, K, S, d), bf16)
     v = _randn(gen, (B, K, S, d), bf16)
     scale = d ** -0.5
-    dev = kernel_ms(lambda: fa.flash_attention(q, k, v, scale=scale))
-    lib = kernel_ms(lambda: F.scaled_dot_product_attention(
+    dev = device_ms(lambda: fa.flash_attention(q, k, v, scale=scale))
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, scale=scale, enable_gqa=True))
     say(f"  flash_attention B={B} H={H} K={K} S={S} d={d} causal: "
-        f"{_total(dev)}; SDPA {_total(lib)} (mean of 25 calls)")
+        f"{dev:.4f} ms; SDPA {lib:.4f} ms")
     B, K, G, bs, maxb = PAGED_SHAPE
     for r, ctxs in [(128, None), (KV_RANK, None), (128, RAGGED_CTX)]:
         args = _paged_inputs(gen, r, ctxs)
-        dev = kernel_ms(lambda: pa.paged_attention(*args))
-        lib = kernel_ms(_sdpa_on_gathered(*args))
+        dev = device_ms(lambda: pa.paged_attention(*args))
+        lib = device_ms(_sdpa_on_gathered(*args))
         span = (f"ctx={maxb * bs - 1}" if ctxs is None else
                 f"ctx={min(ctxs)}-{max(ctxs)} (ragged)")
         say(f"  paged_attention B={B} K={K} G={G} r={r} bs={bs} {span}: "
-            f"{_total(dev)}; SDPA (gather excluded) {_total(lib)} (mean of "
-            f"25 calls)")
+            f"{dev:.4f} ms; SDPA (gather excluded) {lib:.4f} ms")
     span = SPEC_K + 1
     for r in (128, KV_RANK):
         args = _paged_inputs(gen, r, RAGGED_CTX, span=span)
-        dev = kernel_ms(lambda: pa.paged_attention(*args, q_span=span))
-        lib = kernel_ms(_sdpa_on_gathered(*args, span))
+        dev = device_ms(lambda: pa.paged_attention(*args, q_span=span))
+        lib = device_ms(_sdpa_on_gathered(*args, span))
         say(f"  paged_attention verify q_span={span} G'={span * G} r={r} "
-            f"ctx={min(RAGGED_CTX)}-{max(RAGGED_CTX)}: {_total(dev)}; SDPA "
-            f"(gather excluded) {_total(lib)} (mean of 25 calls)")
+            f"ctx={min(RAGGED_CTX)}-{max(RAGGED_CTX)}: {dev:.4f} ms; SDPA "
+            f"(gather excluded) {lib:.4f} ms")
     for name, (m, r, n) in CUR_SHAPES.items():
-        x = _randn(gen, (VERIFY_M, m), bf16)
-        cu = _randn(gen, (m, r), bf16, m ** -0.5)
-        rr = _randn(gen, (r, n), bf16, r ** -0.5)
-        parts = kernel_ms(lambda: cm.cur_matmul(x, cu, rr))
-        lib = kernel_ms(lambda: torch.matmul(torch.matmul(x, cu), rr))
-        say(f"  cur_matmul verify {name} M={VERIFY_M}: " + ", ".join(
-            f"{_pass_name(k)} {v:.4f} ms" for k, v in parts.items())
-            + f" (sum {_total(parts)}); torch.matmul chain {_total(lib)} "
-            f"(mean of 25 calls)")
+        cur_line(f"verify {name} M={VERIFY_M}", VERIFY_M, m, r, n)
+    for M in (CUR_M, VERIFY_M):
+        for name, (m, _, n) in CUR_SHAPES.items():
+            for r in PLAN_RANKS:
+                cur_line(f"plan rank {name} M={M} r={r}", M, m, r, n)
     ds = SyntheticLM(DataConfig(run.cfg.vocab_size, 512, 4, seed=1), "cuda")
     evl = [ds.batch_at(1000 + i) for i in range(2)]
     perplexity(run.cured_params, run.cured_cfg, evl)
@@ -2587,14 +3175,19 @@ def profile_decode(params, cfg, wl):
 
 def main():
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+                    help="comma-separated phases to run (all by default)")
+    ap.add_argument("--cpu-progressive", nargs=2, metavar=("IN", "OUT"),
+                    help="phase 10e's CPU run (started by phase 10)")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build  # noqa: F401 (fails off-repo)
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
-                    help="comma-separated phases to run (all by default)")
-    phases = {int(p) for p in ap.parse_args().phases.split(",")}
+    if opts.cpu_progressive:
+        return cpu_progressive(*opts.cpu_progressive)
+    phases = {int(p) for p in opts.phases.split(",")}
     smi = phase_card()
     if 2 in phases:
         phase_build()
@@ -2602,29 +3195,34 @@ def main():
     times = phase_times() if 4 in phases else None
     if 5 in phases:
         phase_small()
-    run = None
+    run, stats_a = None, None
     if 6 in phases:
-        main_launches, run, draft = phase_main()
+        main_launches, run, draft, ppl_uniform = phase_main()
         if 7 in phases:
-            serve_launches = phase_serve(run, draft)
+            serve_launches, stats_a = phase_serve(run, draft)
         del draft                   # phase 7's restored draft: 14.6 GB
         torch.cuda.empty_cache()
-    heal_case = None
+    heal_case = zoo_model = None
     if 9 in phases:
-        train_launches, heal_case = phase_train(run)
+        train_launches, heal_case, zoo_model = phase_train(run)
+    if 10 in phases and run is not None:
+        plan_launches = phase_plan(run, ppl_uniform, stats_a, zoo_model)
     if 8 in phases and run is not None:
         phase_split(run, heal_case)
-    if phases != set(range(1, 10)):
+    if phases != set(range(1, 11)):
         say(f"ran phases {sorted(phases)} only: no kernel table")
         return 1
     # launches on the main paths: the last cure() run (its generate stage
-    # included) with both perplexity passes (phase 6), phase 7's runs and
-    # phase 9's training, healing and trained-weights runs
+    # included) with both perplexity passes (phase 6), phase 7's runs,
+    # phase 9's training, healing and trained-weights runs and phase 10's
+    # planning parts
     launches = {k: main_launches.get(k, 0) + serve_launches[k]
-                + train_launches[k] for k in serve_launches}
+                + train_launches[k] + plan_launches[k]
+                for k in serve_launches}
     say(f"launches phase 6 {json.dumps(main_launches)}, phase 7 "
         f"{json.dumps(serve_launches)}, phase 9 "
-        f"{json.dumps(train_launches)}")
+        f"{json.dumps(train_launches)}, phase 10 "
+        f"{json.dumps(plan_launches)}")
     meta = {
         "cur_matmul": ("src/repro_torch/csrc/cur_matmul.cu",
                        "src/repro/kernels/cur_matmul/cur_matmul.py:48"),

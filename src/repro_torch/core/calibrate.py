@@ -12,6 +12,7 @@ transfer is one copy of one flat buffer at the end.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -23,6 +24,7 @@ from repro_torch.models.layers import norm
 from repro_torch.models.mlp import mlp_forward
 from repro_torch.models.model import (
     _embed, _not_ported, _positions, iter_layer_params)
+from repro_torch.obs import metrics as obs_metrics
 
 
 @dataclasses.dataclass
@@ -77,20 +79,40 @@ def _calib_step(params, cfg, batch):
 def calibrate(params, cfg, batches) -> CalibStats:
     """batches: list of batch dicts (each one calibration micro-batch) whose
     tensors lie on the params' device."""
+    # default-registry timings (NULL no-ops unless obs is enabled). A host
+    # clock around an enqueue times nothing on CUDA, so with obs on each
+    # batch's observation ends in a device sync; with obs off the pass
+    # has no sync before its one host transfer.
+    timed = obs_metrics.enabled()
+    h_batch = obs_metrics.histogram(
+        "repro_compress_calibrate_batch_s",
+        "per-micro-batch calibration forward (s); first = first use of "
+        "each kernel")
+    c_time = obs_metrics.counter(
+        "repro_compress_calibrate_time_s_total",
+        "total calibration pass seconds")
+    c_toks = obs_metrics.counter(
+        "repro_compress_calibrate_tokens_total", "calibration tokens")
+    t_pass = time.perf_counter()
     hidden_chunks = []
     act_acc: List[Dict[str, torch.Tensor]] = [
         dict() for _ in range(cfg.n_layers)]
     n_tokens = 0
     for batch in batches:
-        shape = (batch["tokens"] if cfg.input_mode == "tokens"
-                 else batch["embeds"]).shape
-        n_tokens += shape[0] * shape[1]
+        t0 = time.perf_counter()
+        inp = batch["tokens"] if cfg.input_mode == "tokens" \
+            else batch["embeds"]
+        n_tokens += inp.shape[0] * inp.shape[1]
         hs, act_sq = _calib_step(params, cfg, batch)
         hidden_chunks.append(hs)
         for li, acc in enumerate(act_sq):
             for t, sq in acc.items():
                 prev = act_acc[li].get(t)
                 act_acc[li][t] = sq if prev is None else prev + sq
+        if timed:
+            if inp.device.type == "cuda":
+                torch.cuda.synchronize(inp.device)
+            h_batch.observe(time.perf_counter() - t0)
     hidden = torch.cat(hidden_chunks, dim=1).float()
     parts = [hidden.reshape(-1)] + [
         acc[t] for acc in act_acc for t in sorted(acc)]
@@ -105,4 +127,6 @@ def calibrate(params, cfg, batches) -> CalibStats:
             d[t] = flat[off:off + n]
             off += n
         act_np.append(d)
+    c_time.inc(time.perf_counter() - t_pass)
+    c_toks.inc(n_tokens)
     return CalibStats(hidden=out_hidden, act_sq=act_np, n_tokens=n_tokens)

@@ -38,6 +38,7 @@ from repro_torch.core.cur import (
 from repro_torch.core.deim import deim
 from repro_torch.core.wanda import wanda_scores
 from repro_torch.models.model import iter_layer_params
+from repro_torch.obs import metrics as obs_metrics
 
 
 @dataclasses.dataclass
@@ -92,6 +93,15 @@ def _generator(seed: int, device) -> torch.Generator:
     return g
 
 
+def sketch_matrices(seeds: Sequence[int], n: int, k: int,
+                    device) -> torch.Tensor:
+    """The randomized SVD's Gaussian test matrices (len(seeds), n, k), each
+    drawn from its own generator seeded by its weight's item seed."""
+    return torch.stack([
+        torch.randn((n, k), generator=_generator(s, device), device=device)
+        for s in seeds])
+
+
 def _top_k_indices(scores: torch.Tensor, r: int) -> torch.Tensor:
     return torch.sort(torch.topk(scores, r, dim=-1).indices, dim=-1).values
 
@@ -115,10 +125,8 @@ def select_indices(W: torch.Tensor, r: int, method: str, act_sq,
             return exact_svd(M, rr)
         g = G
         if g is None:
-            k = min(rr + 8, min(M.shape[-2:]))
-            g = torch.stack([
-                torch.randn((M.shape[-1], k), generator=_generator(s, dev),
-                            device=dev) for s in seeds])
+            g = sketch_matrices(seeds, M.shape[-1],
+                                min(rr + 8, min(M.shape[-2:])), dev)
             g = g if batched else g[0]
         return randomized_svd(M, rr, G=g)
 
@@ -251,7 +259,10 @@ def compress_weight(W: torch.Tensor, name: str, layer: int,
     leaf = _leaf(C, U, R, W.dtype)
     idx = torch.stack([p, q]).cpu().numpy()
     scal = torch.stack([err, frow, bound.to(err.device)]).cpu().numpy()
-    dt = time.perf_counter() - t0
+    dt = time.perf_counter() - t0            # ends at the host transfer
+    obs_metrics.histogram(
+        "repro_compress_weight_s",
+        "per-weight CUR time (loop pipeline / reference path)").observe(dt)
     before, unfolded, folded, deployed = _param_counts(
         m, n, r, cur_cfg.fold_u)
     info = WeightInfo(
@@ -303,6 +314,14 @@ def _compress_batched(work: List[_WorkItem], cur_cfg: CURConfig):
         idx = torch.stack([p, q]).cpu().numpy()
         scal = torch.stack([err, frow, bound.to(err.device)]).cpu().numpy()
         dt = (time.perf_counter() - t0) / len(idxs)
+        # per-shape-class timing, ending at the class's host transfer; the
+        # label space is open-ended but small in practice, so overflow
+        # degrades to NULL instead of raising mid-compression
+        obs_metrics.default_registry().histogram(
+            "repro_compress_class_s",
+            "per-weight seconds by (m,n,r) shape-class",
+            labels=("shape",), overflow="drop").labels(
+            shape=f"{m}x{n}r{r}").observe(dt)
         before, unfolded, folded, deployed = _param_counts(
             m, n, r, cur_cfg.fold_u)
         for k, i in enumerate(idxs):
@@ -417,4 +436,13 @@ def compress_model(params, cfg: ModelConfig, cur_cfg: CURConfig,
         distances=distances, layers=sorted(layer_set), weights=infos,
         seconds_total=time.perf_counter() - t_start,
         seconds_fold=seconds_fold)
+    obs_metrics.counter(
+        "repro_compress_time_s_total",
+        "compress_model wall seconds").inc(cinfo.seconds_total)
+    obs_metrics.counter(
+        "repro_compress_fold_time_s_total",
+        "seconds folding C@U").inc(seconds_fold)
+    obs_metrics.counter(
+        "repro_compress_weights_total",
+        "weights CUR-compressed").inc(len(infos))
     return new_params, new_cfg, cinfo

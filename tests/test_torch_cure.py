@@ -200,13 +200,6 @@ def test_cure_launcher_report_schema(tmp_path):
     assert report["generate"]["tokens"] == 4 * 8
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("plan", "p.json"), ("budget_params", 0.5), ("emit_draft", True)])
-def test_cure_launcher_unported_stages_raise(tmp_path, flag, value):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcure.cure(_cure_args(tmp_path, **{flag: value}))
-
-
 def test_cure_launcher_ckpt_dir_saves_a_restorable_checkpoint(tmp_path):
     """--ckpt-dir: step 0 of {"params": the CURed tree} with keep-N 1 and
     its template.json; it restores bit-identical through the template, and

@@ -42,7 +42,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "dist.checkpoint", "serve.engine", "obs.torchprof",
                  "optim.adamw", "dist.compression", "train.train_loop",
                  "core.heal", "core.peft", "zoo", "launch.train",
-                 "kernels.flash_attention.backward"):
+                 "kernels.flash_attention.backward", "plan.sensitivity",
+                 "plan.allocate", "plan.progressive", "roofline.analysis",
+                 "launch.plan"):
         assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -77,6 +79,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cure.cure(args)
+    from repro_torch.launch import plan
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        plan.main(["--arch", "llama3.1-8b", "--smoke",
+                   "--budget-params", "0.5"])
     assert repro_torch.resolve_device("cpu").type == "cpu"
     from repro_torch.launch import serve
     from repro_torch.serving import Server
