@@ -27,7 +27,15 @@ nonzero:
               at the olmo-1b train and llama3.1-8b heal shapes beside
               SDPA's backward; cur_matmul at the ranks a plan assigns (r
               16 / 32 / 64 / 128 / 512 on the three full-width classes,
-              M 2048 and M 40, bf16)
+              M 2048 and M 40, bf16); the families' shapes, as entries
+              of the same grids: cur_matmul at jamba's and mamba2's w_x
+              and mixtral's wq / wk, each at the row counts phase 11
+              gives it (M 2 to 18,624), flash_attention at head dim 256
+              (windows 0 / 8 / 512, G 1 / 4, ragged S, f32 and bf16, and
+              through the registry's adaptor from d 160), paged_attention
+              at gemma3's r 256 and mixtral's window 4096, and the same
+              f32 inputs without the softmax scale against an f64 result
+              (1e-5)
   4. times    kernel, plain version and one library call at the main
               paths' shapes (median of 25 launches, CUDA events), beside
               the least time the card could take (bound), with achieved
@@ -35,7 +43,14 @@ nonzero:
               kernel's registers and spills from the -Xptxas -v log;
               the verify shapes (paged_attention q_span 5, cur_matmul
               M 40) and the planned ranks (cur_matmul r 16 .. 512, M 2048
-              and 40, beside the torch.matmul chain) on lines of their own
+              and 40, beside the torch.matmul chain) on lines of their own;
+              every line also by device_ms; the families' shapes in the
+              same loops (cur_matmul at the w_x classes and mixtral's wq
+              / wk, at M 2048 and mixtral's served prefill, beside the
+              chain; flash_attention at gemma3-1b's d 256 and mixtral's
+              window beside SDPA with the window mask; paged_attention at
+              r 256 and window 4096 beside SDPA on the gathered pool with
+              the window mask)
   5. small    the folded forward at a small f32 size on the card against
               the same params on the CPU (plain versions), 2e-5; then
               that model served on the card and on the CPU, dense and
@@ -136,15 +151,52 @@ nonzero:
               process of its own (so that no timed part shares the host),
               on the CPU (f32, the same tokens): the same layers, ranks, accept
               flags and early stop, perplexities within 1e-3
+ 11. families (after 10, before 8) the other model families, each model
+              freed before the next, each part's launches counted from 0:
+              (a) the SMOKE configs of jamba, mixtral, kimi, mamba2 and
+              gemma3 in f32, params from one seed made on the CPU:
+              forward card vs CPU (2e-5), cure_run at --layers 2 --svd
+              exact on both (the same layers and DEIM indices), the
+              greedy tokens of the engine (jamba, mamba2) or the Server
+              card == CPU; (b) jamba-v0.1-52b at full width, one period
+              (8 of 32 layers, 13,267,540,608 params, bf16): cure_run at
+              --layers 6, r_max 256 on 4 x 4 x 512 tokens (saved to
+              build/chip_smoke_family, deleted), saved_deployed against
+              the count from the shapes, perplexity original and folded
+              and the folded pass's time, one folded forward traced by
+              layer kind (moe_dense, mamba block, SSD scan, attention,
+              MLP, cur_matmul), the engine's decode logits against
+              forward() at steps 1 / 16 / 63: in bf16 printed, with the
+              top-k flips against the forward's routing and again with
+              the forward's routing held (the recurrent decode rounds
+              otherwise than the chunked scan in the JAX package too,
+              which tests/test_torch_family_decode.py holds on the CPU),
+              and held at 2e-2 on the model cast to f32; (c)
+              mixtral-8x22b at full width, 4 of 56 layers: cure_run at
+              --layers 2, the Server on 4 prompts of 4,160-4,608 tokens
+              (windowed flash_attention and paged_attention, blocks
+              evicted behind the 4096 window), one request's prefill and
+              decode logits through the paged runtime against forward():
+              in bf16 every step past 2e-2 must come at or after a top-k
+              flip against the forward's routing, and with that routing
+              held the logits must be within 2e-2; in f32 within 2e-2;
+              (d) mamba2-1.3b at full size: cure_run at --layers 8 (the
+              engine's generate stage), decode logits against forward()
+              (bf16 printed, f32 held at 2e-2); (e)
+              gemma3-1b at full size: one forward through
+              flash_attention at d 256, the paged runtime at r 256 past
+              the 512 window against forward(), the Server
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernel table.
 ``--phases 1,2,3`` runs only the phases named (for a first check of a new
 kernel; phase 9 without 6 makes llama3.1-8b's weights itself, phase 10
-needs 6 and trains its REPRO model without 9); the kernel table and the
-last line need every phase.
+needs 6 and trains its REPRO model without 9, phase 11 needs none of the
+others: ``--phases 1,2,11``); the kernel table and the last line need
+every phase.
 """
 import argparse
+import gc
 import json
 import math
 import os
@@ -202,6 +254,27 @@ CHAOS_PLAN = {"seed": 11, "faults": [
 # phase 7's: the same streams and a queue storm
 CHAOS_PLAN_7 = {"seed": 5, "faults": CHAOS_PLAN["faults"] + [
     {"kind": "queue_storm", "start_step": 6, "end_step": 7, "n": 3}]}
+
+# this slice's full-width shapes (phases 3 and 4). cur_matmul: (m, r, n)
+# and the row counts phase 11 gives each class: calibration 4 x 512, the
+# engine's prefill 2 x 256 and decode 2 (jamba, mamba2); mixtral's one
+# request of 4160, the Server's prefill of 4 slots x 4656 (the bucket is
+# the pool's max_len) and its decode of 4 slots
+MIXTRAL_SERVED_M = 4 * 4656
+FAMILY_CUR = {"jamba w_x": ((4096, 256, 8192), (CUR_M, 512, 2)),
+              "mamba2 w_x": ((2048, 256, 4096), (CUR_M, 512, 2)),
+              "mixtral wq": ((6144, 256, 6144),
+                             (CUR_M, 4160, MIXTRAL_SERVED_M, 4)),
+              "mixtral wk": ((6144, 256, 1024),
+                             (CUR_M, 4160, MIXTRAL_SERVED_M, 4))}
+# B, H, K, S, d, window: gemma3-1b's local layers, mixtral's prefill
+FAMILY_FLASH = {"gemma3 d 256": (4, 4, 1, 1024, 256, 512),
+                "mixtral window": (1, 48, 8, 4608, 128, 4096)}
+# B, K, G, r, bs, ctx, window: gemma3's decode (r = hd 256, a local layer)
+# and mixtral's (the window behind the longest prompt)
+FAMILY_PAGED = {"gemma3 r 256": (3, 1, 4, 256, 16, (700, 600, 800), 512),
+                "mixtral window": (4, 8, 6, 128, 16,
+                                   (4191, 4383, 4511, 4639), 4096)}
 
 
 def say(*a):
@@ -443,36 +516,40 @@ def phase_kernels():
             failures.append(label)
         return abs_err if main else 0.0
 
-    cur_cases = [(M,) + CUR_SHAPES[k] + (dt, True)
+    cur_cases = [("", M) + CUR_SHAPES[k] + (dt, True)
                  for M in (CUR_M, VERIFY_M)
                  for k in CUR_SHAPES for dt in (bf16, f32)]
     # the ranks a plan assigns at full width (phase 10), bf16
-    cur_cases += [(M, m, r, n, bf16, True) for M in (CUR_M, VERIFY_M)
+    cur_cases += [("", M, m, r, n, bf16, True) for M in (CUR_M, VERIFY_M)
                   for (m, _, n) in CUR_SHAPES.values() for r in PLAN_RANKS]
-    cur_cases += [(96, 100, 24, 200, f32, False),
-                  (96, 100, 24, 200, bf16, False),    # fused body (m 100)
-                  (512, 1024, 16, 1024, bf16, False),
-                  (512, 1024, 24, 1024, bf16, False),
-                  (1024, 2048, 512, 1024, bf16, False),
-                  (1024, 1000, 64, 520, bf16, False),  # split off a slice edge
-                  (300, 512, 40, 264, bf16, False)]    # ragged M, last n tile
-    for M, m, r, n, dt, main in cur_cases:
+    # the other families' classes at the row counts phase 11 gives them
+    cur_cases += [(f"{name} ", M) + shape + (dt, True)
+                  for name, (shape, Ms) in FAMILY_CUR.items() for M in Ms
+                  for dt in (bf16, f32)]
+    cur_cases += [("", 96, 100, 24, 200, f32, False),
+                  ("", 96, 100, 24, 200, bf16, False),  # fused body (m 100)
+                  ("", 512, 1024, 16, 1024, bf16, False),
+                  ("", 512, 1024, 24, 1024, bf16, False),
+                  ("", 1024, 2048, 512, 1024, bf16, False),
+                  ("", 1024, 1000, 64, 520, bf16, False),  # split, slice edge
+                  ("", 300, 512, 40, 264, bf16, False)]  # ragged M, last tile
+    for name, M, m, r, n, dt, main in cur_cases:
         x = _randn(gen, (M, m), dt)
         cu = _randn(gen, (m, r), dt, m ** -0.5)
         rr = _randn(gen, (r, n), dt, r ** -0.5)
         y = cm.cur_matmul(x, cu, rr)
         torch.cuda.synchronize()
         body = cm.plan(M, m, r, n, dt).body
-        e = check(f"cur_matmul M={M} m={m} r={r} n={n} {dt} ({body})", y,
-                  cur_matmul_ref(x, cu, rr), dt, main and dt == bf16)
+        label = f"cur_matmul {name}M={M} m={m} r={r} n={n}"
+        e = check(f"{label} {dt} ({body})", y, cur_matmul_ref(x, cu, rr), dt,
+                  main and dt == bf16)
         worst["cur_matmul"] = max(worst["cur_matmul"], e)
-        if dt == bf16 and (main or m == 100):   # main: M 2048 and 40
+        if dt == bf16 and (main or m == 100):   # main: phase 6 to 11's rows
             # no atomics: a second call gives the same bits
             same = torch.equal(y, cm.cur_matmul(x, cu, rr))
-            say(f"  cur_matmul M={M} m={m} r={r} n={n} repeat "
-                f"{'bit-identical' if same else 'DIFFERS'}")
+            say(f"  {label} repeat {'bit-identical' if same else 'DIFFERS'}")
             if not same:
-                failures.append(f"cur_matmul repeat M={M} n={n}")
+                failures.append(f"cur_matmul repeat {name}M={M} n={n}")
     x = _randn(gen, (2, 8, 16, 128), f32)
     cu = _randn(gen, (128, 32), f32)
     rr = _randn(gen, (32, 256), f32)
@@ -496,6 +573,20 @@ def phase_kernels():
         (2, 4, 4, 64, 16, 0, True, f32, False),       # MHA, d 16
         (1, 8, 1, 128, 32, 0, True, f32, False),      # MQA, d 32
     ]
+    # head dim 256: gemma3-1b's local layers (window 512), windows 0 / 8
+    # / 512, G 1 / 4, ragged S, non-causal
+    gB, gH, gK, gS, gd, gw = FAMILY_FLASH["gemma3 d 256"]
+    flash_cases += [
+        (gB, gH, gK, gS, gd, gw, True, bf16, True),
+        (gB, gH, gK, gS, gd, gw, True, f32, False),
+        (1, 4, 4, 200, 256, 0, True, f32, False),
+        (1, 4, 4, 200, 256, 8, True, bf16, False),
+        (2, 4, 1, 130, 256, 8, True, f32, False),
+        (2, 4, 1, 130, 256, 0, True, bf16, False),
+        (1, 4, 1, 100, 256, 0, False, f32, False),
+        (1, 4, 1, 100, 256, 0, False, bf16, False),
+        (1, 4, 1, 600, 256, 512, True, bf16, False),
+        (1, 4, 4, 600, 256, 512, True, f32, False)]
     for b, h, k, s, dd, win, causal, dt, main in flash_cases:
         q = _randn(gen, (b, h, s, dd), dt)
         kk = _randn(gen, (b, k, s, dd), dt)
@@ -513,10 +604,10 @@ def phase_kernels():
         if main:
             same = torch.equal(o, fa.flash_attention(
                 q, kk, v, causal=causal, window=win, scale=scale))
-            say(f"  flash_attention main shape repeat "
+            say(f"  flash_attention main shape d={dd} repeat "
                 f"{'bit-identical' if same else 'DIFFERS'}")
             if not same:
-                failures.append("flash_attention repeat")
+                failures.append(f"flash_attention repeat d={dd}")
     try:
         fa.flash_attention(_randn(gen, (1, 6, 32, 16), f32),
                            _randn(gen, (1, 4, 32, 16), f32),
@@ -656,33 +747,81 @@ def phase_kernels():
         except ValueError as exc:
             say(f"  paged_attention {label} raises: {exc}")
 
+    # the paged family cases: gemma3's r 256 and mixtral's window 4096, q
+    # carrying the softmax scale r^-0.5 as runtime.fold_q gives it on a
+    # dense pool (r = hd); then the same f32 inputs without the scale
+    # (scores of std r^0.5), the kernel against an f64 result at the f32
+    # bound, and the plain f32 version's reading beside it
+    for name, (B, K, G, r, bs, ctxs, win) in FAMILY_PAGED.items():
+        shape = (B, K, G, bs, -(-(max(ctxs) + 1) // bs))
+        for dt in (bf16, f32):
+            args = _paged_inputs(gen, r, ctxs, dtype=dt, shape=shape,
+                                 q_scale=r ** -0.5)
+            check_paged(f"paged_attention {name} B={B} K={K} G={G} r={r} "
+                        f"bs={bs} ctx={min(ctxs)}-{max(ctxs)} window={win} "
+                        f"{dt}", args, dt, window=win)
+        q, kp, vp, table, ctx = args
+        q = q * r ** 0.5
+        y = pa.paged_attention(q, kp, vp, table, ctx, window=win)
+        y64 = _paged_f64(q, kp, vp, table, ctx, win)
+        rel = rel_err(y.double(), y64)
+        rel32 = rel_err(paged_attention_ref(q, kp, vp, table, ctx,
+                                            window=win).double(), y64)
+        ok = rel < PAGED_F32_TOL
+        say(f"  paged_attention {name} f32, q without the scale: kernel vs "
+            f"f64 rel {rel:.3e} (tol {PAGED_F32_TOL:g}) "
+            f"{'ok' if ok else 'FAIL'}; plain f32 vs f64 rel {rel32:.3e}")
+        if not ok:
+            failures.append(f"paged_attention {name} unscaled vs f64")
+
     # the registry's flash adaptor zero-pads a feature dim between the
     # kernel's widths (rank-space CUR-KV prefill at r = 8, 24, 48: folded
-    # queries carry the scale, the kernel gets 1.0), against the kernel's
-    # plain version at the unpadded width
+    # queries carry the scale, the kernel gets 1.0; d 160 pads to 256),
+    # against the kernel's plain version at the unpadded width
     from repro_torch.attention import registry
-    for d, dt in [(8, f32), (24, f32), (48, f32), (8, bf16), (24, bf16),
-                  (48, bf16)]:
+    for d, dt, win in [(8, f32, 0), (24, f32, 0), (48, f32, 0), (8, bf16, 0),
+                       (24, bf16, 0), (48, bf16, 0), (160, f32, 8),
+                       (160, bf16, 8)]:
         B, S, K, G = 2, 96, 2, 2
         qg = _randn(gen, (B, S, K, G, d), dt, d ** -0.5)
         kk = _randn(gen, (B, S, K, d), dt)
         v = _randn(gen, (B, S, K, d), dt)
         pos = torch.arange(S, device="cuda")[None].expand(B, S)
         f0 = fa.launches
-        o = registry._mix_flash_cuda(qg, kk, v, pos, pos, 0, 1.0, chunk=0)
+        o = registry._mix_flash_cuda(qg, kk, v, pos, pos, win, 1.0, chunk=0)
         torch.cuda.synchronize()
         ref = flash_attention_ref(
             qg.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, d),
-            kk.transpose(1, 2), v.transpose(1, 2), scale=1.0)
+            kk.transpose(1, 2), v.transpose(1, 2), window=win, scale=1.0)
         ref = ref.reshape(B, K, G, S, d).permute(0, 3, 1, 2, 4)
         check(f"flash_attention padded d={d} -> "
-              f"{registry._padded_dim(d)} {dt}", o, ref, dt, False)
+              f"{registry._padded_dim(d)} window={win} {dt}", o, ref, dt,
+              False)
         if fa.launches != f0 + 1:
             failures.append(f"flash padded d={d}: kernel not launched")
     flash_grads(gen, check, failures)
     if failures:
         raise SystemExit(f"kernel checks failed: {failures}")
     return worst
+
+
+def _paged_f64(q, kp, vp, table, ctx, window):
+    """paged_attention in float64, slot by slot: keys at positions t <= ctx
+    and, with a window, t > ctx - window."""
+    import torch
+    out = torch.zeros(q.shape, dtype=torch.float64, device=q.device)
+    bs = kp.shape[1]
+    for b in range(q.shape[0]):
+        c = int(ctx[b])
+        blocks = table[b, :c // bs + 1].long()
+        k = kp[blocks].reshape(-1, *kp.shape[2:])[:c + 1].double()
+        v = vp[blocks].reshape(-1, *vp.shape[2:])[:c + 1].double()
+        t = torch.arange(c + 1, device=q.device)
+        live = t > c - window if window > 0 else t >= 0
+        s = torch.einsum("kgr,tkr->kgt", q[b].double(), k)
+        s = s.masked_fill(~live, float("-inf"))
+        out[b] = torch.einsum("kgt,tkr->kgr", torch.softmax(s, -1), v)
+    return out
 
 
 def flash_grads(gen, check, failures):
@@ -770,17 +909,19 @@ def flash_grads(gen, check, failures):
             f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
 
 
-def _paged_inputs(gen, r, ctxs=None, span=1, dtype=None):
-    """Inputs of paged_attention at the serving shape (PAGED_SHAPE), bf16
-    unless ``dtype``: a random pool of B maxb blocks, each slot's table a
-    random permutation of its blocks; ctx maxb bs - 1 for every slot, or
-    ``ctxs`` (then the entries past a slot's last position are unassigned,
-    as the scheduler leaves them). ``span`` > 1 gives the verify layout:
-    span G query rows per (slot, kv head), the last at ctx + span - 1."""
+def _paged_inputs(gen, r, ctxs=None, span=1, dtype=None, shape=PAGED_SHAPE,
+                  q_scale=1.0):
+    """Inputs of paged_attention at ``shape`` (B, K, G, bs, maxb; the
+    serving shape by default), bf16 unless ``dtype``: q times ``q_scale``,
+    a random pool of B maxb blocks, each slot's table a random permutation
+    of its blocks; ctx maxb bs - 1 for every slot, or ``ctxs`` (then the
+    entries past a slot's last position are unassigned, as the scheduler
+    leaves them). ``span`` > 1 gives the verify layout: span G query rows
+    per (slot, kv head), the last at ctx + span - 1."""
     import torch
-    B, K, G, bs, maxb = PAGED_SHAPE
+    B, K, G, bs, maxb = shape
     dtype = dtype or torch.bfloat16
-    q = _randn(gen, (B, K, span * G, r), dtype)
+    q = _randn(gen, (B, K, span * G, r), dtype, q_scale)
     kp = _randn(gen, (B * maxb, bs, K, r), dtype)
     vp = _randn(gen, (B * maxb, bs, K, r), dtype)
     table = torch.randperm(B * maxb, device="cuda").reshape(B, maxb).int()
@@ -795,11 +936,12 @@ def _paged_inputs(gen, r, ctxs=None, span=1, dtype=None):
     return q, kp, vp, table, ctx
 
 
-def _sdpa_on_gathered(q, kp, vp, table, ctx, span=1):
+def _sdpa_on_gathered(q, kp, vp, table, ctx, span=1, window=0):
     """The library yardstick of paged_attention, gather excluded: SDPA
     over the pool gathered once into a contiguous (B, K, L, r) view with a
-    boolean mask (row g of the verify layout at position ctx + g // G).
-    Returns the call to time."""
+    boolean mask (row g of the verify layout at position ctx + g // G;
+    with a window, only its last ``window`` positions). Returns the call
+    to time."""
     import torch
     import torch.nn.functional as F
     B, maxb = table.shape
@@ -811,8 +953,11 @@ def _sdpa_on_gathered(q, kp, vp, table, ctx, span=1):
     rows = q.shape[2]
     last = ctx[:, None].long() + torch.arange(
         rows, device="cuda")[None] // (rows // span)          # (B, rows)
-    mask = (torch.arange(L, device="cuda")[None, None] <= last[..., None]
-            )[:, None]                                        # (B,1,rows,L)
+    t = torch.arange(L, device="cuda")[None, None]
+    mask = t <= last[..., None]                               # (B,rows,L)
+    if window:
+        mask &= t > last[..., None] - window
+    mask = mask[:, None]                                      # (B,1,rows,L)
     return lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask,
                                                   scale=1.0)
 
@@ -831,27 +976,35 @@ def phase_times():
     rows = {}
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
            "bytes": 0, "flops": 0}
-    for name, (m, r, n) in CUR_SHAPES.items():
-        M = CUR_M
+    # the llama classes at calibration's rows (the kernel table's row),
+    # then the other families' classes there and at their largest rows
+    cur_rows = [("", CUR_M, shape) for shape in CUR_SHAPES.values()]
+    cur_rows += [(f"{name} ", M, shape)
+                 for name, (shape, Ms) in FAMILY_CUR.items()
+                 for M in sorted({CUR_M, max(Ms)})]
+    for name, M, (m, r, n) in cur_rows:
         x = _randn(gen, (M, m), bf16)
         cu = _randn(gen, (m, r), bf16, m ** -0.5)
         rr = _randn(gen, (r, n), bf16, r ** -0.5)
-        ms = median_ms(lambda: cm.cur_matmul(x, cu, rr))
+        fn = lambda: cm.cur_matmul(x, cu, rr)
+        chain = lambda: torch.matmul(torch.matmul(x, cu), rr)
+        ms, lib = median_ms(fn), median_ms(chain)
         plain = median_ms(lambda: cur_matmul_ref(x, cu, rr))
-        lib = median_ms(lambda: torch.matmul(torch.matmul(x, cu), rr))
         nbytes = 2 * (M * m + m * r + r * n + M * n)
         flops = 2 * M * r * (m + n)
         bnd, by = bound_ms(nbytes, flops)
-        say(f"  cur_matmul {name} M={M} m={m} r={r} n={n} "
-            f"({cm.plan(M, m, r, n, bf16).body}): kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s, "
+        say(f"  cur_matmul {name}M={M} m={m} r={r} n={n} "
+            f"({cm.plan(M, m, r, n, bf16).body}): kernel {ms:.4f} ms "
+            f"(device {device_ms(fn):.4f}), plain {plain:.4f} ms, library "
+            f"{lib:.4f} ms (device {device_ms(chain):.4f}), bound "
+            f"{bnd:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s, "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
-        say(f"    host {host_ms(lambda: cm.cur_matmul(x, cu, rr)):.4f} ms "
-            f"per call (launches only)")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                     ("bound_ms", bnd), ("bytes", nbytes), ("flops", flops)):
-            tot[k] += v
+        say(f"    host {host_ms(fn):.4f} ms per call (launches only)")
+        if not name:
+            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bound_ms", bnd), ("bytes", nbytes),
+                         ("flops", flops)):
+                tot[k] += v
     _, by = bound_ms(tot["bytes"], tot["flops"])
     rows["cur_matmul"] = dict(tot, bound_by=by)
     say(f"  cur_matmul wq + wk + w_gate: kernel {tot['ms']:.4f} ms, "
@@ -859,42 +1012,64 @@ def phase_times():
         f"ms; {tot['bytes'] / tot['ms'] / 1e6:.1f} GB/s, "
         f"{tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s")
 
-    B, H, K, S, d = FLASH_SHAPE
-    q = _randn(gen, (B, H, S, d), bf16)
-    k = _randn(gen, (B, K, S, d), bf16)
-    v = _randn(gen, (B, K, S, d), bf16)
-    scale = d ** -0.5
-    ms = median_ms(lambda: fa.flash_attention(q, k, v, scale=scale))
-    plain = median_ms(lambda: flash_attention_ref(q, k, v, scale=scale))
-    lib = median_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=scale, enable_gqa=True))
-    nbytes = 2 * (2 * B * H * S * d + 2 * B * K * S * d)
-    flops = 4 * B * H * d * (S * (S + 1) // 2)      # live causal pairs
-    bnd, by = bound_ms(nbytes, flops)
-    say(f"  flash_attention B={B} H={H} K={K} S={S} d={d} causal: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
-        f"bound {bnd:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s, "
-        f"{flops / ms / 1e9:.1f} TFLOP/s")
-    say(f"    host {host_ms(lambda: fa.flash_attention(q, k, v, scale=scale)):.4f}"
-        f" ms per call (launches only)")
-    rows["flash_attention"] = {"ms": ms, "plain_ms": plain,
-                               "library_ms": lib, "bound_ms": bnd,
-                               "bound_by": by}
+    # flash_attention at llama's prefill (the kernel table's row), then at
+    # gemma3's head dim 256 and mixtral's window 4096, beside SDPA with
+    # the same mask
+    flash_rows = [("", FLASH_SHAPE + (0,))]
+    flash_rows += [(f"{name} ", shape) for name, shape in FAMILY_FLASH.items()]
+    for name, (B, H, K, S, d, win) in flash_rows:
+        q = _randn(gen, (B, H, S, d), bf16)
+        k = _randn(gen, (B, K, S, d), bf16)
+        v = _randn(gen, (B, K, S, d), bf16)
+        scale = d ** -0.5
+        fn = lambda: fa.flash_attention(q, k, v, window=win, scale=scale)
+        sdpa = _sdpa_window(q, k, v, win, scale) if win else (
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+        ms, lib = median_ms(fn), median_ms(sdpa)
+        plain = median_ms(lambda: flash_attention_ref(q, k, v, window=win,
+                                                      scale=scale))
+        nbytes = 2 * (2 * B * H * S * d + 2 * B * K * S * d)
+        flops = 4 * B * H * d * _live_pairs(S, win)     # live causal pairs
+        bnd, by = bound_ms(nbytes, flops)
+        say(f"  flash_attention {name}B={B} H={H} K={K} S={S} d={d} "
+            f"window={win} causal ({fa.plan(B, H, S, d, bf16).body}): kernel "
+            f"{ms:.4f} ms (device {device_ms(fn):.4f}), plain {plain:.4f} "
+            f"ms, library {lib:.4f} ms (device {device_ms(sdpa):.4f}), "
+            f"bound {bnd:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        say(f"    host {host_ms(fn):.4f} ms per call (launches only)")
+        if not name:
+            rows["flash_attention"] = {"ms": ms, "plain_ms": plain,
+                                       "library_ms": lib, "bound_ms": bnd,
+                                       "bound_by": by}
+        del q, k, v
 
     # paged_attention at the serving path's full-width decode step: every
     # slot at the longest context phase 7 reaches (all maxb blocks live),
     # then at workload B's spread of contexts (ragged: the splits of the
-    # shorter slots hold no live entry)
+    # shorter slots hold no live entry); then gemma3's r 256 and mixtral's
+    # window 4096 (q carrying the scale, as on a dense pool)
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    B, K, G, bs, maxb = PAGED_SHAPE
-    for r, ctxs in [(128, None), (KV_RANK, None), (128, RAGGED_CTX),
-                    (KV_RANK, RAGGED_CTX)]:
-        q, kp, vp, table, ctx = _paged_inputs(gen, r, ctxs)
-        ms = median_ms(lambda: pa.paged_attention(q, kp, vp, table, ctx))
-        plain = median_ms(lambda: paged_attention_ref(q, kp, vp, table, ctx))
-        lib = median_ms(_sdpa_on_gathered(q, kp, vp, table, ctx))
-        live = int((ctx.long() + 1).sum()) * K       # live (slot, head, t)
+    paged_rows = [("", r, ctxs, PAGED_SHAPE, 1.0, 0)
+                  for ctxs in (None, RAGGED_CTX) for r in (128, KV_RANK)]
+    paged_rows += [(f"{name} ", r, ctxs,
+                    (B, K, G, bs, -(-(max(ctxs) + 1) // bs)), r ** -0.5, win)
+                   for name, (B, K, G, r, bs, ctxs, win)
+                   in FAMILY_PAGED.items()]
+    for name, r, ctxs, shape, q_scale, win in paged_rows:
+        B, K, G, bs, maxb = shape
+        q, kp, vp, table, ctx = _paged_inputs(gen, r, ctxs, shape=shape,
+                                              q_scale=q_scale)
+        fn = lambda: pa.paged_attention(q, kp, vp, table, ctx, window=win)
+        sdpa = _sdpa_on_gathered(q, kp, vp, table, ctx, window=win)
+        ms, lib = median_ms(fn), median_ms(sdpa)
+        plain = median_ms(lambda: paged_attention_ref(q, kp, vp, table, ctx,
+                                                      window=win))
+        # live (slot, head, t): the in-window positions of each slot
+        live = sum(min(c + 1, win) if win else c + 1
+                   for c in ctx.tolist()) * K
         nbytes = 2 * (2 * live * r + 2 * B * K * G * r)
         flops = 4 * live * G * r
         bnd, by = bound_ms(nbytes, flops)
@@ -902,15 +1077,15 @@ def phase_times():
                     sms=pa._sm_count(torch.cuda.current_device()))
         span = (f"ctx={maxb * bs - 1}" if ctxs is None else
                 f"ctx={min(ctxs)}-{max(ctxs)} (ragged)")
-        say(f"  paged_attention B={B} K={K} G={G} r={r} bs={bs} maxb={maxb}"
-            f" {span} ({p.body}, {p.splits} splits of "
-            f"{p.entries_per_split} entries, {p.grid[0] * p.grid[1]} "
-            f"blocks): kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-            f"(SDPA, gather excluded) {lib:.4f} ms, bound {bnd:.4f} ms "
-            f"({by}); {nbytes / ms / 1e6:.1f} GB/s")
-        say(f"    host {host_ms(lambda: pa.paged_attention(q, kp, vp, table, ctx)):.4f}"
-            f" ms per call (launches only)")
-        if r == 128 and ctxs is None:
+        say(f"  paged_attention {name}B={B} K={K} G={G} r={r} bs={bs} "
+            f"maxb={maxb} {span} window={win} ({p.body}, {p.splits} splits "
+            f"of {p.entries_per_split} entries, {p.grid[0] * p.grid[1]} "
+            f"blocks): kernel {ms:.4f} ms (device {device_ms(fn):.4f}), "
+            f"plain {plain:.4f} ms, library (SDPA, gather excluded) "
+            f"{lib:.4f} ms (device {device_ms(sdpa):.4f}), bound {bnd:.4f} "
+            f"ms ({by}); {nbytes / ms / 1e6:.1f} GB/s")
+        say(f"    host {host_ms(fn):.4f} ms per call (launches only)")
+        if (name, r, ctxs) == ("", 128, None):
             rows["paged_attention"] = {"ms": ms, "plain_ms": plain,
                                        "library_ms": lib, "bound_ms": bnd,
                                        "bound_by": by}
@@ -922,6 +1097,22 @@ def phase_times():
             say(f"  ptxas {name}: {fn}: {regs} registers, spill stores "
                 f"{st} B, spill loads {ld} B")
     return rows
+
+
+def _live_pairs(S, window):
+    """Causal (query, key) pairs inside the window over S positions."""
+    return sum(min(i + 1, window) if window else i + 1 for i in range(S))
+
+
+def _sdpa_window(q, k, v, window, scale):
+    """SDPA with the causal sliding-window mask (one library call)."""
+    import torch
+    import torch.nn.functional as F
+    S = q.shape[2]
+    i = torch.arange(S, device="cuda")
+    mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
 
 
 def times_verify(gen):
@@ -3173,10 +3364,804 @@ def profile_decode(params, cfg, wl):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the other families (MoE, Mamba-2, hybrid, head dim 256)
+# ---------------------------------------------------------------------------
+
+FAMILY_SMOKES = ("jamba-v0.1-52b", "mixtral-8x22b", "kimi-k2-1t-a32b",
+                 "mamba2-1.3b", "gemma3-1b")
+# phase 11's checkpoints (git-ignored; deleted after each run)
+FAMILY_DIR = os.path.join(ROOT, "build", "chip_smoke_family")
+JAMBA_PERIODS = 1                             # 8 of 32 layers
+JAMBA_PARAMS = 13_267_540_608                 # one period at full width
+MIXTRAL_LAYERS = 4                            # of 56
+MIXTRAL_PARAMS = 10_418_903_040
+MIXTRAL_PROMPTS = (4160, 4352, 4480, 4608)    # cross the 4096 window
+GEMMA_PROMPT = 700                            # past the 512 window
+DEVICES = {"card": "cuda", "cpu": "cpu"}      # 11a's two runs
+
+
+class _CpuMade:
+    """cure_run's init and calibration data made on the CPU and copied to
+    ``device``: the same params and tokens on the card and the CPU."""
+
+    def __init__(self, cure_mod, params_cpu):
+        self.mod, self.params = cure_mod, params_cpu
+
+    def __enter__(self):
+        from repro_torch.data.tokens import SyntheticLM
+        from repro_torch.bridge import tree_map
+        params = self.params
+
+        def init(seed, cfg, device):
+            return tree_map(lambda t: t.to(device), params)
+
+        class Data:
+            def __init__(self, dc, device):
+                self.ds, self.device = SyntheticLM(dc, "cpu"), device
+
+            def batch_at(self, i):
+                return {k: v.to(self.device)
+                        for k, v in self.ds.batch_at(i).items()}
+
+        self.saved = (self.mod.init_params, self.mod.SyntheticLM)
+        self.mod.init_params, self.mod.SyntheticLM = init, Data
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.init_params, self.mod.SyntheticLM = self.saved
+
+
+def _cure_args(arch, layers, r_max, *extra):
+    from repro_torch.launch import cure as cure_mod
+    return cure_mod.parser().parse_args(
+        ["--arch", arch, "--layers", str(layers), "--r-max", str(r_max)]
+        + list(extra) + ["--ckpt-dir", FAMILY_DIR])
+
+
+def _indices(info):
+    return [(w.layer, w.name, w.rank, w.rows.tolist(), w.cols.tolist())
+            for w in info.weights]
+
+
+def family_smokes():
+    """11a: the SMOKE configs of the new families, f32, params from one
+    seed made on the CPU: forward logits card vs CPU (2e-5); cure_run at
+    --layers 2 --svd exact on both (the same layers and DEIM indices);
+    the greedy tokens of the static engine (jamba, mamba2) or the Server
+    (the attention stacks) on the CURed model, card == CPU."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import cure as cure_mod
+    from repro_torch.models import forward, init_params
+    from repro_torch.serve import engine
+    from repro_torch.serving import PagedConfig, Server
+    from repro_torch.serving import paged_cache as pcache
+    failed = []
+    for arch in FAMILY_SMOKES:
+        cfg = get_smoke(arch)
+        p_cpu = init_params(0, cfg, "cpu")
+        p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+        toks = np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 40))
+        t_cpu = torch.from_numpy(toks)
+        rel = rel_err(forward(p_gpu, cfg, {"tokens": t_cpu.cuda()}).cpu(),
+                      forward(p_cpu, cfg, {"tokens": t_cpu}))
+        runs = {}
+        for where, dev in DEVICES.items():
+            shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+            args = _cure_args(arch, 2, 8, "--smoke", "--svd", "exact",
+                              "--device", dev)
+            with _CpuMade(cure_mod, p_cpu):
+                runs[where] = cure_mod.cure_run(args)
+        shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+        same_sel = (runs["card"].report["layers_compressed"]
+                    == runs["cpu"].report["layers_compressed"]
+                    and _indices(runs["card"].info)
+                    == _indices(runs["cpu"].info))
+        cp = {w: r.cured_params for w, r in runs.items()}
+        ccfg = runs["cpu"].cured_cfg
+        prompts = np.random.RandomState(4).randint(0, cfg.vocab_size, (3, 12))
+        if pcache.supports(ccfg):
+            via, out = "Server", {}
+            for where, dev in DEVICES.items():
+                srv = Server(cp[where], ccfg, PagedConfig.sized_for(
+                    12 + 10, 3, block_size=4), max_concurrency=3,
+                    device=dev)
+                for row in prompts.tolist():
+                    srv.submit(row, 10)
+                srv.drain()
+                out[where] = [srv.finished[i].out_tokens for i in range(3)]
+        else:
+            via = "engine"
+            out = {where: engine.generate(cp[where], ccfg, torch.from_numpy(
+                prompts).to(dev), 10).tokens.cpu().tolist()
+                for where, dev in DEVICES.items()}
+        ok = rel < F32_TOL and same_sel and out["card"] == out["cpu"]
+        say(f"  11a {arch} (SMOKE, f32): forward card vs CPU rel {rel:.3e} "
+            f"(tol {F32_TOL:g}); cure layers "
+            f"{runs['card'].report['layers_compressed']} / "
+            f"{runs['cpu'].report['layers_compressed']}, "
+            f"{len(runs['card'].info.weights)} weights, DEIM indices "
+            f"{'equal' if same_sel else 'DIFFER'}; {via} greedy tokens "
+            f"card == CPU {out['card'] == out['cpu']} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"11a {arch}")
+        del runs, cp, p_gpu
+        torch.cuda.empty_cache()
+    return failed
+
+
+def _deployed_saving(cfg, layers, r_max):
+    """saved_deployed from the shapes: per compressed layer, each 2-D CUR
+    target of its block at the rank cure gives it, m n - r (m + n)."""
+    from repro_torch.core.cur import rank_for
+    D, hd = cfg.d_model, cfg.resolved_head_dim
+    shapes = {"wq": (D, cfg.n_heads * hd), "wk": (D, cfg.n_kv_heads * hd),
+              "w_gate": (D, cfg.d_ff), "w_x": (D, cfg.d_inner)}
+    blocks = cfg.blocks
+    total = 0
+    for li in layers:
+        spec = blocks[li]
+        have = ({"wq", "wk"} if spec.mixer in ("attn", "attn_local") else
+                {"w_x"}) | ({"w_gate"} if spec.mlp == "mlp" else set())
+        for t in cfg.cur_targets:
+            if t in have:
+                m, n = shapes[t]
+                r = rank_for(m, n, r_max)
+                total += m * n - r * (m + n)
+    return total
+
+
+def _to_f32(tree):
+    """Cast every floating leaf of a param tree to f32 in place, one leaf
+    at a time (each bf16 leaf is freed as its f32 copy replaces it, when
+    nothing else holds it)."""
+    import torch
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if isinstance(v, (dict, list)):
+            _to_f32(v)
+        elif torch.is_tensor(v) and v.is_floating_point():
+            tree[k] = v.float()
+    return tree
+
+
+class _RouteTape:
+    """Holds decode's MoE routing against the forward's, by wrapping
+    ``repro_torch.models.moe.route``. The caller marks each pass over the
+    sequences: ``at(start, n)`` before a prefill or decode step over
+    positions [start, start + n), ``at(None, S)`` before the forward over
+    all S positions, whose calls are recorded (one (B, S, k) tensor of
+    experts per MoE layer, in call order). Without ``force`` the passes
+    keep their own routing; with it each pass routes its tokens to the
+    forward's experts at the same layer and position, the gates taken
+    from the pass's own probabilities there and renormalised as ``route``
+    does. ``flips()`` counts, per pass, the tokens whose own expert set
+    differs from the forward's, summed over the layers."""
+
+    def __init__(self, force=False, rec=None):
+        import repro_torch.models.moe as moe
+        self.moe, self.real, self.force = moe, moe.route, force
+        self.rec = [] if rec is None else rec
+        self.passes, self.span = [], None
+
+    def __enter__(self):
+        self.moe.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+    def at(self, start, n):
+        self.span = (start, n)
+        if start is not None:
+            self.passes.append((start, n, []))
+        elif not self.force:
+            self.rec.clear()
+
+    def _route(self, xt, router, k):
+        import torch
+        gates, experts = self.real(xt, router, k)
+        start, n = self.span
+        if start is None:
+            if not self.force:
+                self.rec.append(experts.reshape(-1, n, k))
+            return gates, experts
+        calls = self.passes[-1][2]
+        calls.append(experts)
+        if not self.force:
+            return gates, experts
+        want = self.rec[len(calls) - 1][:, start:start + n].reshape(-1, k)
+        probs = torch.softmax((xt @ router.to(xt.dtype)).float(), dim=-1)
+        g = probs.gather(1, want)
+        return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), want
+
+    def flips(self):
+        """[(first position routed otherwise than the forward or None,
+        tokens so routed summed over the layers)], one per pass."""
+        import torch
+        out = []
+        for start, n, calls in self.passes:
+            if len(calls) != len(self.rec):
+                raise RuntimeError(f"pass at {start}: {len(calls)} MoE "
+                                   f"calls, the forward made {len(self.rec)}")
+            d = torch.zeros((self.rec[0].shape[0], n), dtype=torch.bool,
+                            device=self.rec[0].device)
+            count = 0
+            for own, want in zip(calls, self.rec):
+                want = want[:, start:start + n]
+                diff = (own.reshape(want.shape).sort(-1)[0]
+                        != want.sort(-1)[0]).any(-1)
+                count += int(diff.sum())
+                d |= diff
+            hit = d.any(0).nonzero()
+            out.append((start + int(hit[0]) if len(hit) else None, count))
+        return out
+
+
+def _engine_vs_forward(params, cfg, B, S, n_new, label, tape=None):
+    """The static engine's greedy generate(): prefill and decode logits at
+    ENGINE_CHECK_STEPS against forward() over the grown sequence, each
+    pass marked on ``tape`` when given. Returns ({step: rel}, decode ms
+    per step, the grown sequence, forward()'s logits)."""
+    import torch
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.models import forward
+    from repro_torch.serve import engine
+    prompts = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=2),
+                          "cuda").batch_at(0)["tokens"]
+    rec, steps = {}, [0]
+    real_prefill, real_decode = engine.prefill, engine.decode_step
+    mark = tape.at if tape is not None else (lambda start, n: None)
+
+    def prefill(prm, c, batch, cache):
+        mark(0, S)
+        out = real_prefill(prm, c, batch, cache)
+        rec[0] = out[0].clone()
+        torch.cuda.synchronize()
+        rec["t0"] = time.perf_counter()
+        return out
+
+    def decode_step(prm, c, batch, cache, pos):
+        steps[0] += 1
+        mark(S - 1 + steps[0], 1)
+        out = real_decode(prm, c, batch, cache, pos)
+        if steps[0] in ENGINE_CHECK_STEPS:
+            rec[steps[0]] = out[0].clone()
+        return out
+
+    engine.prefill, engine.decode_step = prefill, decode_step
+    try:
+        out = engine.generate(params, cfg, prompts, n_new)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - rec.pop("t0")) * 1e3 / steps[0]
+    finally:
+        engine.prefill, engine.decode_step = real_prefill, real_decode
+    seq = torch.cat([prompts, out.tokens[:, :n_new - 1]], dim=1)
+    mark(None, seq.shape[1])
+    full = forward(params, cfg, {"tokens": seq})
+    rels = {t: rel_err(lg, full[:, S - 1 + t]) for t, lg in sorted(
+        rec.items())}
+    say(f"  {label} engine: B={B} prompts of {S}, {n_new} new (greedy), "
+        f"decode {decode_ms:.2f} ms per step; logits vs forward() "
+        + ", ".join(f"step {t} rel {r:.3e}" for t, r in rels.items())
+        + f" (tol {BF16_TOL:g})")
+    return rels, decode_ms, seq, full
+
+
+def _engine_routed(params, cfg, seq, S, full, tape, label):
+    """The engine's prefill and decode steps (models.prefill /
+    decode_step, its cache and positions) teacher-forced on ``seq``, each
+    pass routed by ``tape``: logits at ENGINE_CHECK_STEPS against
+    ``full``, forward()'s logits over ``seq``. Returns {step: rel}."""
+    import torch
+    from repro_torch.models import decode_step, init_cache, prefill
+    B = seq.shape[0]
+    steps = max(ENGINE_CHECK_STEPS)
+    cache = init_cache(cfg, B, S + steps + 1, "cuda")
+    tape.at(0, S)
+    logits, cache = prefill(params, cfg, {"tokens": seq[:, :S]}, cache)
+    rels = {0: rel_err(logits, full[:, S - 1])}
+    for i in range(1, steps + 1):
+        p = S - 1 + i
+        tape.at(p, 1)
+        logits, cache = decode_step(
+            params, cfg, {"tokens": seq[:, p:p + 1]}, cache,
+            torch.full((B, 1), p, dtype=torch.int32, device="cuda"))
+        if i in ENGINE_CHECK_STEPS:
+            rels[i] = rel_err(logits, full[:, p])
+    say(f"  {label}: logits vs forward() " + ", ".join(
+        f"step {t} rel {r:.3e}" for t, r in rels.items())
+        + f" (tol {BF16_TOL:g})")
+    del cache
+    return rels
+
+
+def _flip_witness(rels, flips, S, label):
+    """Whether every step whose logits depart from forward() past the bf16
+    bound comes at or after a position whose token some pass routed
+    otherwise than the forward did (a top-k flip upstream of it). Step t
+    is position S - 1 + t. Prints the flips."""
+    hits = [(p, d) for p, d in flips if p is not None]
+    first = min((p for p, _ in hits), default=None)
+    past = [t for t, r in rels.items() if r >= BF16_TOL]
+    ok = all(first is not None and S - 1 + t >= first for t in past)
+    say(f"  {label}: top-k flips against the forward's routing (first "
+        f"position: tokens) " + (", ".join(f"{p}: {d}" for p, d in hits)
+                                 or "none")
+        + f"; steps past {BF16_TOL:g} {past}, each at or after the first "
+        f"flip {ok}")
+    return ok
+
+
+def _paged_vs_forward(params, cfg, prompt, n_dec, label, tape=None,
+                      seq=None):
+    """One request through the paged runtime (runtime.paged_prefill, then
+    n_dec runtime.paged_decode steps, on a dense pool): its logits against
+    forward() over the grown sequence. The decode tokens are greedy, or
+    ``seq``'s (teacher-forced); each pass is marked on ``tape`` when
+    given. Returns (the logits' rels, prefill first, and the sequence)."""
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.serving import PagedConfig, runtime
+    from repro_torch.serving import paged_cache as pcache
+    n = len(prompt)
+    mark = tape.at if tape is not None else (lambda start, k: None)
+    pc = PagedConfig.sized_for(n + n_dec, 1, block_size=16)
+    cache = pcache.init_paged_cache(cfg, pc, "cuda")
+    table = torch.full((1, pc.max_blocks_per_seq), -1, dtype=torch.int32)
+    nblk = pc.blocks_for(n + n_dec)
+    table[0, :nblk] = torch.arange(nblk, dtype=torch.int32)
+    mark(0, n)
+    logits, cache = runtime.paged_prefill(
+        params, cfg, pc, torch.tensor([prompt]), torch.tensor([n]), cache,
+        table)
+    got, out = [logits[0]], list(prompt)
+    active = torch.ones((1,), dtype=torch.bool)
+    for i in range(n_dec):
+        out.append(int(got[-1].argmax()) if seq is None else seq[n + i])
+        mark(n + i, 1)
+        logits, cache = runtime.paged_decode(
+            params, cfg, pc, torch.tensor([[out[-1]]]), cache, table,
+            torch.tensor([n + i], dtype=torch.int32), active)
+        got.append(logits[0])
+    mark(None, len(out))
+    full = forward(params, cfg, {"tokens": torch.tensor([out],
+                                                        device="cuda")})[0]
+    rels = [rel_err(g, full[n - 1 + i]) for i, g in enumerate(got)]
+    say(f"  {label} paged runtime, one request of {n} tokens + {n_dec} "
+        f"decodes (dense pool, r {cfg.resolved_head_dim}): logits vs "
+        f"forward() prefill rel {rels[0]:.3e}, decode "
+        + ", ".join(f"{r:.3e}" for r in rels[1:]) + f" (tol {BF16_TOL:g})")
+    del cache, full
+    return rels, out
+
+
+def _kind_trace(params, cfg, batch):
+    """Device time of one forward by layer kind, from torch.profiler's
+    record_function scopes around each kind's function (inclusive:
+    mamba_block holds its ssd_scan and its cur_matmul)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import repro_torch.kernels.cur_matmul.ops as cm_ops
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.mamba as mb_mod
+    import repro_torch.models.model as model_mod
+    from repro_torch.models import forward
+    scopes = [(model_mod, "moe_forward", "moe_dense"),
+              (model_mod, "mlp_forward", "mlp"),
+              (mb_mod, "mamba_forward", "mamba_block"),
+              (mb_mod, "ssd_chunked", "ssd_scan"),
+              (attn_mod, "attn_forward", "attention"),
+              (cm_ops, "cur_matmul_op", "cur_matmul")]
+    saved = []
+    for mod, fn, name in scopes:
+        real = getattr(mod, fn)
+
+        def wrapped(*a, _real=real, _name=name, **kw):
+            with record_function(_name):
+                return _real(*a, **kw)
+        saved.append((mod, fn, real))
+        setattr(mod, fn, wrapped)
+    try:
+        with torch.no_grad():
+            forward(params, cfg, batch)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                forward(params, cfg, batch)
+                torch.cuda.synchronize()
+    finally:
+        for mod, fn, real in saved:
+            setattr(mod, fn, real)
+    names = {name for _, _, name in scopes}
+    kind, busy = {}, 0.0
+    # the hand kernels are launched through ctypes: their device time is
+    # summed by kernel name as well as under the scopes
+    by_name = {"cur_matmul kernels": ("pass1_kernel", "reduce_kernel",
+                                      "pass2_kernel", "cur_matmul_kernel"),
+               "flash_attention kernels": ("flash_kernel",)}
+    for e in prof.key_averages():
+        if "CUDA" in str(getattr(e, "device_type", "")):
+            for label, keys in by_name.items():
+                if any(k in e.key for k in keys):
+                    kind[label] = kind.get(label, 0.0) + getattr(
+                        e, "self_device_time_total", 0.0) / 1e3
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "cuda_time_total", 0.0)
+        if e.key in names and getattr(e, "device_type", None) is not None \
+                and "CPU" in str(e.device_type):
+            kind[e.key] = dev / 1e3
+        if "CUDA" in str(getattr(e, "device_type", "")) and \
+                e.key not in names:
+            busy += getattr(e, "self_device_time_total", 0.0) / 1e3
+    # the profiler's context manager and this frame refer to each other:
+    # drop it, or the cycle keeps params (the whole model) alive until the
+    # garbage collector runs
+    del prof
+    return kind, busy
+
+
+def family_jamba():
+    """11b: jamba-v0.1-52b at full width, one period (8 of 32 layers),
+    bf16, random weights from seed 0 made on the card: cure_run at
+    --layers 6, r_max 256 on 4 x 4 x 512 calibration tokens; the save and
+    the engine's generate stage; saved_deployed against the count from
+    the shapes; original and folded perplexity and the folded pass's
+    time; engine decode logits against forward(); a device trace of one
+    folded forward by layer kind."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs import jamba_v0_1_52b as jamba
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.launch import cure as cure_mod
+    from repro_torch.train.evaluate import perplexity
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.replace(n_layers=8 * JAMBA_PERIODS,
+                       groups=((jamba._PERIOD, JAMBA_PERIODS),))
+    failed = []
+    real_get = cure_mod.get_config
+    cure_mod.get_config = lambda name: cfg
+    shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        run = cure_mod.cure_run(_cure_args(
+            "jamba-v0.1-52b", 6, 256, "--calib-batches", "4",
+            "--calib-batch", "4", "--calib-len", "512", "--device", "cuda"))
+    finally:
+        cure_mod.get_config = real_get
+    ckpt = _dir_bytes(FAMILY_DIR)
+    shutil.rmtree(FAMILY_DIR)
+    rep = run.report
+    want = _deployed_saving(cfg, rep["layers_compressed"], 256)
+    names = sorted({w["name"] for w in rep["weights"]})
+    say(f"  11b jamba-v0.1-52b: {JAMBA_PERIODS} period ({cfg.n_layers} of "
+        f"{full.n_layers} layers), d {cfg.d_model}, {cfg.param_count()} "
+        f"params ({cfg.param_count() * 2 / 1e9:.1f} GB bf16); stages_s "
+        f"{json.dumps(rep['stages_s'])}; checkpoint {ckpt} bytes (deleted)")
+    say(f"    layers {rep['layers_compressed']}, {rep['n_weights']} weights "
+        f"{names}; saved_deployed {rep['params']['saved_deployed']} (from "
+        f"the shapes {want}); generate {rep['generate']['tokens']} tokens "
+        f"via {rep['generate']['engine']}")
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, 512, 4, seed=1), "cuda")
+    evl = [ds.batch_at(1000 + i) for i in range(2)]
+    ppl_orig = perplexity(run.params, cfg, evl)
+    c0 = _counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ppl_cur = perplexity(run.cured_params, run.cured_cfg, evl)
+    torch.cuda.synchronize()
+    t_fold = time.perf_counter() - t1
+    fold = {k: v - c0[k] for k, v in _counts().items()}
+    say(f"    perplexity original {ppl_orig:.6f} folded {ppl_cur:.6f} "
+        f"(2 x 4 x 512 tokens); folded pass {t_fold:.3f} s, launches "
+        f"{json.dumps(fold)}")
+    # bf16, printed: the engine's own routing, its top-k flips against
+    # the forward's, then the same tokens routed as the forward routes
+    # them (the recurrent decode's own rounding stays: the CPU test
+    # test_bf16_decode_gap_within_the_reference_gap holds that part to
+    # the JAX package's gap)
+    tape = _RouteTape()
+    with tape:
+        bf_rels, _, seq, full = _engine_vs_forward(
+            run.cured_params, run.cured_cfg, 2, 256, 64,
+            "    jamba folded, bf16, own routing (printed)", tape)
+    _flip_witness(bf_rels, tape.flips(), 256, "    jamba bf16")
+    with _RouteTape(force=True, rec=tape.rec) as held:
+        _engine_routed(run.cured_params, run.cured_cfg, seq, 256, full, held,
+                       "    jamba folded, bf16, the forward's routing "
+                       "(printed)")
+    del tape, held, full
+    kind, busy = _kind_trace(run.cured_params, run.cured_cfg, evl[0])
+    say(f"    trace of one folded forward (4 x 512 tokens), device ms by "
+        f"layer kind (inclusive): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(kind.items()))
+        + f"; kernels busy {busy:.3f} ms")
+    # the cache-state check in f32, where neither rounding nor a top-k
+    # flip hides a state that was not carried
+    cured, ccfg = run.cured_params, run.cured_cfg.replace(dtype="float32")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    rels = _engine_vs_forward(_to_f32(cured), ccfg, 2, 256, 64,
+                              "    jamba folded, f32")[0]
+    say(f"    peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; wall {time.perf_counter() - t0:.1f} s")
+    checks = {
+        "13,267,540,608 params": cfg.param_count() == JAMBA_PARAMS,
+        "6 layers, wq wk w_gate w_x": len(rep["layers_compressed"]) == 6
+            and names == ["w_gate", "w_x", "wk", "wq"],
+        "saved_deployed from the shapes":
+            rep["params"]["saved_deployed"] == want,
+        "generate via the engine": rep["generate"]["engine"] == "legacy",
+        "finite perplexities":
+            math.isfinite(ppl_orig) and math.isfinite(ppl_cur),
+        "cur_matmul and flash_attention on the folded pass":
+            fold["cur_matmul"] > 0 and fold["flash_attention"] > 0,
+        "f32 engine logits within 2e-2": max(rels.values()) < BF16_TOL,
+    }
+    failed += [f"11b {k}" for k, ok in checks.items() if not ok]
+    del cured
+    torch.cuda.empty_cache()
+    return failed
+
+
+def _serve_long(params, cfg, prompts, n_new, label):
+    """The Server (dense pool, block 16) on long prompts at once; counts
+    the blocks the scheduler evicts behind the window."""
+    import torch
+    from repro_torch.serving import PagedConfig, Server
+    B = len(prompts)
+    max_len = max(len(p) for p in prompts) + n_new
+    srv = Server(params, cfg, PagedConfig.sized_for(max_len, B,
+                                                    block_size=16),
+                 max_concurrency=B, device="cuda")
+    evicted = [0]
+    real = srv.scheduler.evict_out_of_window
+
+    def counted():
+        n = real()
+        evicted[0] += n
+        return n
+    srv.scheduler.evict_out_of_window = counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        srv.submit(p, n_new)
+    fin = srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r.out_tokens) for r in fin.values())
+    done = len(fin) == B and all(r.finish_reason == "length"
+                                 for r in fin.values())
+    say(f"  {label} Server: {B} requests of {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens, {n_new} new: {n_tok} tokens in "
+        f"{wall:.3f} s ({n_tok / wall:.1f} tok/s); window "
+        f"{srv.scheduler.window}, {evicted[0]} blocks evicted; every "
+        f"request finished by length {done}")
+    drained = srv.scheduler.alloc.n_free == srv.pc.n_blocks
+    del srv
+    torch.cuda.empty_cache()
+    return done and drained, evicted[0]
+
+
+def family_mixtral():
+    """11c: mixtral-8x22b at full width, 4 of 56 layers, bf16: cure_run at
+    --layers 2, r_max 256 (generate stage through the Server); 4 requests
+    of 4,160-4,608-token prompts and 32 new tokens through the Server
+    (windowed flash_attention in prefill, windowed paged_attention in
+    decode, blocks evicted behind the 4096 window); one request's prefill
+    and decode logits through the paged runtime against forward()."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cure as cure_mod
+    full = get_config("mixtral-8x22b")
+    cfg = full.replace(n_layers=MIXTRAL_LAYERS,
+                       groups=((full.groups[0][0], MIXTRAL_LAYERS),))
+    real_get = cure_mod.get_config
+    cure_mod.get_config = lambda name: cfg
+    shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        run = cure_mod.cure_run(_cure_args(
+            "mixtral-8x22b", 2, 256, "--calib-batches", "4",
+            "--calib-batch", "4", "--calib-len", "512", "--device", "cuda"))
+    finally:
+        cure_mod.get_config = real_get
+    shutil.rmtree(FAMILY_DIR)
+    rep = run.report
+    params, ccfg = run.cured_params, run.cured_cfg
+    say(f"  11c mixtral-8x22b: {MIXTRAL_LAYERS} of {full.n_layers} layers, "
+        f"{cfg.param_count()} params; stages_s "
+        f"{json.dumps(rep['stages_s'])}; layers {rep['layers_compressed']}"
+        f", saved_deployed {rep['params']['saved_deployed']}; generate "
+        f"{rep['generate']['tokens']} tokens via "
+        f"{rep['generate']['engine']}")
+    del run
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in MIXTRAL_PROMPTS]
+    c0 = _counts()
+    served, evicted = _serve_long(params, ccfg, prompts, 32,
+                                  "    mixtral CURed")
+    launches = {k: v - c0[k] for k, v in _counts().items()}
+    say(f"    Server launches {json.dumps(launches)}")
+    # bf16: the runtime's own routing, its top-k flips against the
+    # forward's (every step past the bound comes at or after one), then
+    # the same tokens routed as the forward routes them, held to 2e-2
+    tape = _RouteTape()
+    with tape:
+        own, seq = _paged_vs_forward(params, ccfg, prompts[0], 8,
+                                     "    mixtral bf16, own routing", tape)
+    n = len(prompts[0])
+    witness = _flip_witness(dict(enumerate(own)), tape.flips(), n,
+                            "    mixtral bf16")
+    with _RouteTape(force=True, rec=tape.rec) as held:
+        rel_held = max(_paged_vs_forward(
+            params, ccfg, prompts[0], 8, "    mixtral bf16, the forward's "
+            "routing", held, seq=seq)[0])
+    steered = sum(d for _, d in held.flips())
+    say(f"    tokens steered to the forward's experts: {steered}")
+    del tape, held
+    # and in f32, where no top-k flip hides a wrong cache
+    rel = max(_paged_vs_forward(_to_f32(params),
+                                ccfg.replace(dtype="float32"), prompts[0], 8,
+                                "    mixtral f32")[0])
+    del params
+    say(f"    wall {time.perf_counter() - t0:.1f} s")
+    checks = {
+        "10,418,903,040 params": cfg.param_count() == MIXTRAL_PARAMS,
+        "generate via the Server": rep["generate"]["engine"] == "serving",
+        "served: every request finished, pool drained": served,
+        "blocks evicted behind the window": evicted > 0,
+        "windowed kernels launched": launches["flash_attention"] > 0
+            and launches["paged_attention"] > 0,
+        "bf16 steps past 2e-2 at or after a top-k flip": witness,
+        "bf16 paged logits, the forward's routing, within 2e-2 of "
+        "forward()": rel_held < BF16_TOL,
+        "f32 paged logits within 2e-2 of forward()": rel < BF16_TOL,
+    }
+    torch.cuda.empty_cache()
+    return [f"11c {k}" for k, ok in checks.items() if not ok]
+
+
+def family_mamba2():
+    """11d: mamba2-1.3b at full size (48 layers), bf16: cure_run at
+    --layers 8, r_max 256 (generate stage through the engine); engine
+    decode logits against forward()."""
+    import shutil
+    import torch
+    from repro_torch.launch import cure as cure_mod
+    shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    run = cure_mod.cure_run(_cure_args(
+        "mamba2-1.3b", 8, 256, "--calib-batches", "4", "--calib-batch", "4",
+        "--calib-len", "512", "--device", "cuda"))
+    shutil.rmtree(FAMILY_DIR)
+    rep = run.report
+    want = _deployed_saving(run.cfg, rep["layers_compressed"], 256)
+    say(f"  11d mamba2-1.3b: {run.cfg.n_layers} layers, "
+        f"{run.cfg.param_count()} params; stages_s "
+        f"{json.dumps(rep['stages_s'])}; layers {rep['layers_compressed']}"
+        f", saved_deployed {rep['params']['saved_deployed']} (from the "
+        f"shapes {want}); generate {rep['generate']['tokens']} tokens via "
+        f"{rep['generate']['engine']}")
+    c0 = _counts()
+    _engine_vs_forward(run.cured_params, run.cured_cfg, 2, 256, 64,
+                       "    mamba2 folded, bf16 (printed, not checked)")
+    launches = {k: v - c0[k] for k, v in _counts().items()}
+    cured, ccfg = run.cured_params, run.cured_cfg.replace(dtype="float32")
+    rels = _engine_vs_forward(_to_f32(cured), ccfg, 2, 256, 64,
+                              "    mamba2 folded, f32")[0]
+    say(f"    engine run launches {json.dumps(launches)}; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    checks = {
+        "8 layers of w_x": len(rep["layers_compressed"]) == 8
+            and {w["name"] for w in rep["weights"]} == {"w_x"},
+        "saved_deployed from the shapes":
+            rep["params"]["saved_deployed"] == want,
+        "generate via the engine": rep["generate"]["engine"] == "legacy",
+        "cur_matmul launched": launches["cur_matmul"] > 0,
+        "f32 engine logits within 2e-2": max(rels.values()) < BF16_TOL,
+    }
+    del run, cured
+    torch.cuda.empty_cache()
+    return [f"11d {k}" for k, ok in checks.items() if not ok]
+
+
+def family_gemma():
+    """11e: gemma3-1b at full size (26 layers, head dim 256), bf16, random
+    weights from seed 0: one forward through flash_attention at d 256;
+    the paged runtime at r 256 on a prompt past the 512 window against
+    forward(); the Server on three such prompts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    cfg = get_config("gemma3-1b")
+    t0 = time.perf_counter()
+    params = init_params(0, cfg, "cuda")
+    rng = np.random.RandomState(6)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (4, 1024))).cuda()
+    c0 = _counts()
+    with torch.no_grad():
+        logits = forward(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    fwd = {k: v - c0[k] for k, v in _counts().items()}
+    finite = bool(torch.isfinite(logits.float()).all())
+    say(f"  11e gemma3-1b: {cfg.n_layers} layers, head dim "
+        f"{cfg.resolved_head_dim}, {cfg.param_count()} params; forward "
+        f"(4, 1024) finite {finite}, launches {json.dumps(fwd)}")
+    del logits
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in (GEMMA_PROMPT, 600, 800)]
+    c0 = _counts()
+    with torch.no_grad():
+        rel = max(_paged_vs_forward(params, cfg, prompts[0], 8,
+                                    "    gemma3")[0])
+    served, _ = _serve_long(params, cfg, prompts, 16, "    gemma3")
+    launches = {k: v - c0[k] for k, v in _counts().items()}
+    say(f"    paged launches {json.dumps(launches)}; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    checks = {
+        "forward finite": finite,
+        "flash_attention at d 256 in the forward":
+            fwd["flash_attention"] == cfg.n_layers,
+        "paged_attention launched": launches["paged_attention"] > 0,
+        "served: every request finished, pool drained": served,
+        "logits within 2e-2 of forward()": rel < BF16_TOL,
+    }
+    return [f"11e {k}" for k, ok in checks.items() if not ok]
+
+
+def phase_families():
+    """Phase 11: the other families on the card. Each part is driven with
+    the counts set to 0 just before it and read just after; each model is
+    freed before the next. Returns the summed counts."""
+    import torch
+    say("== phase 11: the other families (MoE, Mamba-2, hybrid, d 256)")
+    say(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB held by the "
+        f"earlier phases")
+    total = {"cur_matmul": 0, "flash_attention": 0, "paged_attention": 0}
+    failed = []
+    for name, part in (("11a", family_smokes), ("11b", family_jamba),
+                       ("11c", family_mixtral), ("11d", family_mamba2),
+                       ("11e", family_gemma)):
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        failed += part()
+        torch.cuda.synchronize()
+        n = _counts()
+        for k, v in n.items():
+            total[k] += v
+        gc.collect()                # each model is freed before the next
+        torch.cuda.empty_cache()
+        say(f"  {name} launches {json.dumps(n)}, "
+            f"{time.perf_counter() - t0:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held after")
+    say(f"  phase 11 launches {json.dumps(total)}")
+    if failed:
+        raise SystemExit(f"family checks failed: {failed}")
+    return total
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (all by default)")
     ap.add_argument("--cpu-progressive", nargs=2, metavar=("IN", "OUT"),
                     help="phase 10e's CPU run (started by phase 10)")
@@ -3207,22 +4192,25 @@ def main():
         train_launches, heal_case, zoo_model = phase_train(run)
     if 10 in phases and run is not None:
         plan_launches = phase_plan(run, ppl_uniform, stats_a, zoo_model)
+    if 11 in phases:
+        family_launches = phase_families()
     if 8 in phases and run is not None:
         phase_split(run, heal_case)
-    if phases != set(range(1, 11)):
+    if phases != set(range(1, 12)):
         say(f"ran phases {sorted(phases)} only: no kernel table")
         return 1
     # launches on the main paths: the last cure() run (its generate stage
     # included) with both perplexity passes (phase 6), phase 7's runs,
-    # phase 9's training, healing and trained-weights runs and phase 10's
-    # planning parts
+    # phase 9's training, healing and trained-weights runs, phase 10's
+    # planning parts and phase 11's families
     launches = {k: main_launches.get(k, 0) + serve_launches[k]
-                + train_launches[k] + plan_launches[k]
+                + train_launches[k] + plan_launches[k] + family_launches[k]
                 for k in serve_launches}
     say(f"launches phase 6 {json.dumps(main_launches)}, phase 7 "
         f"{json.dumps(serve_launches)}, phase 9 "
         f"{json.dumps(train_launches)}, phase 10 "
-        f"{json.dumps(plan_launches)}")
+        f"{json.dumps(plan_launches)}, phase 11 "
+        f"{json.dumps(family_launches)}")
     meta = {
         "cur_matmul": ("src/repro_torch/csrc/cur_matmul.cu",
                        "src/repro/kernels/cur_matmul/cur_matmul.py:48"),

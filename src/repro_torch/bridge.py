@@ -92,14 +92,17 @@ def flatten_up_to(template: Any, tree: Any) -> List[Any]:
 def unflatten_as(template: Any, leaves) -> Any:
     """Inverse of :func:`flatten_up_to`: the structure of ``template``
     with its leaf positions (``None`` included) filled from ``leaves``."""
-    it = iter(leaves)
+    return _build(template, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
 
-    return build(template)
+def _build(t, it):
+    # a module-level function, not a recursive closure: a closure that
+    # calls itself is a reference cycle, and one holding the leaves'
+    # iterator keeps every leaf (views of whole models) alive until the
+    # garbage collector next runs
+    if isinstance(t, dict):
+        out = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)

@@ -198,6 +198,17 @@ LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
 
 SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
+# archs allowed to run long_500k (sub-quadratic sequence mixing; DESIGN.md §5)
+SUBQUADRATIC_ARCHS = ("mamba2-1.3b", "jamba-v0.1-52b", "gemma3-1b",
+                      "mixtral-8x22b")
+
+
+def shape_applicable(arch_name: str, shape: ShapeConfig) -> bool:
+    if shape.name == "long_500k":
+        return arch_name in SUBQUADRATIC_ARCHS
+    return True
+
+
 # ---------------------------------------------------------------------------
 # CURing options
 # ---------------------------------------------------------------------------

@@ -18,12 +18,13 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, MLP
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA, MLP, MOE
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models.layers import norm
 from repro_torch.models.mlp import mlp_forward
-from repro_torch.models.model import (
-    _embed, _not_ported, _positions, iter_layer_params)
+from repro_torch.models.model import _embed, _positions, iter_layer_params
+from repro_torch.models.moe import moe_forward
 from repro_torch.obs import metrics as obs_metrics
 
 
@@ -60,17 +61,23 @@ def _calib_step(params, cfg, batch):
         for t in cfg.cur_targets:
             if t in _MIXER_TARGETS and t in p:
                 acc[t] = _sq_sum(h1)
-        if spec.mixer not in (ATTN, ATTN_LOCAL):
-            raise _not_ported(spec.mixer)
-        win = cfg.window if spec.mixer == ATTN_LOCAL else 0
-        x = x + attn.attn_forward(h1, p, cfg, positions, window=win)
-        if spec.mlp != MLP:
-            raise _not_ported(spec.mlp)
-        h2 = norm(x, p.get("norm2"), cfg)
-        for t in cfg.cur_targets:
-            if t in _MLP_TARGETS and t in p:
-                acc[t] = _sq_sum(h2)
-        x = x + mlp_forward(h2, p, cfg)
+        if spec.mixer in (ATTN, ATTN_LOCAL):
+            win = cfg.window if spec.mixer == ATTN_LOCAL else 0
+            a = attn.attn_forward(h1, p, cfg, positions, window=win)
+        elif spec.mixer == MAMBA:
+            a = mb.mamba_forward(h1, p, cfg)
+        else:
+            raise ValueError(spec.mixer)
+        x = x + a
+        if spec.mlp in (MLP, MOE):
+            h2 = norm(x, p.get("norm2"), cfg)
+            for t in cfg.cur_targets:
+                if t in _MLP_TARGETS and t in p:
+                    acc[t] = _sq_sum(h2)
+            if spec.mlp == MLP:
+                x = x + mlp_forward(h2, p, cfg)
+            else:
+                x = x + moe_forward(h2, p, cfg)
         hs.append(x[:, -1, :])
         act_sq.append(acc)
     return torch.stack(hs), act_sq

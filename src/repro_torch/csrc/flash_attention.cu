@@ -38,13 +38,19 @@
 //     and the K/V tiles come by TMA (3-D maps, so a tile past S is zero
 //     within its head), tile j + 1 in flight on an mbarrier while tile j's
 //     math runs, one barrier per tile.
-//   `fa2::flash_kernel_mma` (other bf16: d 16 and 32, the rank-space
+//   `fa2::flash_kernel_mma` (other bf16: d 16, 32 and 256, the rank-space
 //     prefill's padded widths, or unaligned bases) follows
 //     FlashAttention-2: Q loaded once into registers with ldmatrix; K and
 //     V through a two-stage cp.async ring, one barrier per tile; QK^T and
-//     PV on mma.sync.m16n8k16, V through ldmatrix.trans.
+//     PV on mma.sync.m16n8k16, V through ldmatrix.trans. At d 256 (gemma3's
+//     head dim) the 64 x 256 output accumulator alone takes 128 registers
+//     a thread, so Q's fragments are not held: each k16 step of QK^T
+//     reads its fragment from the q tile in shared memory (ldmatrix), and
+//     the tile and the two K/V stages take 165 KB of the 227 KB a block
+//     may have.
 //   `flash_kernel` (f32) runs both products on FMA from shared memory so
-//     that it stays exact f32 (tensor-core f32 input is TF32).
+//     that it stays exact f32 (tensor-core f32 input is TF32); at d 256
+//     its q, K and V tiles and the score tile take 210 KB.
 //
 // Known limits, for later work: the wg body waits out each product before
 // the softmax (no ping-pong of two warpgroups or intra-warpgroup
@@ -277,6 +283,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                  float scale, int causal, int window) {
   using L = Layout<D>;
   constexpr int LD = L::LD, DK = D / 16, DN = D / 8, NB = KEYS / 8;
+  constexpr bool QREG = D <= 128;     // Q's fragments held in registers
   extern __shared__ __align__(128) unsigned char smem_mma[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_mma);
   __nv_bfloat16* ring = q_s + ROWS * LD;   // stage st: k, then v
@@ -310,7 +317,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_commit();
 
-  uint32_t qf[DK][4];
+  uint32_t qf[QREG ? DK : 1][4];
   float acc[DN][4];
 #pragma unroll
   for (int c = 0; c < DN; ++c)
@@ -323,11 +330,13 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
   for (int j = j_lo, st = 0; j <= j_hi; ++j, st ^= 1) {
     cp_async_wait_all();
     __syncthreads();   // tile j is in; every warp is done with tile j - 1
-    if (j == j_lo) {
+    const __nv_bfloat16* q_w =
+        q_s + (warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8;
+    if constexpr (QREG) {
+      if (j == j_lo) {
 #pragma unroll
-      for (int kd = 0; kd < DK; ++kd)
-        ldmatrix_x4(qf[kd], q_s + (warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
-                                kd * 16 + (lane / 16) * 8);
+        for (int kd = 0; kd < DK; ++kd) ldmatrix_x4(qf[kd], q_w + kd * 16);
+      }
     }
     if (j < j_hi) {    // tile j + 1 into the other stage, in flight below
       __nv_bfloat16* nxt = ring + 2 * (st ^ 1) * L::KV;
@@ -346,13 +355,20 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[c][e] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < DK; ++kd) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kd][e];
+      } else {
+        ldmatrix_x4(qa, q_w + kd * 16);
+      }
 #pragma unroll
       for (int n2 = 0; n2 < NB / 2; ++n2) {
         uint32_t bk[4];
         ldmatrix_x4(bk, k_t + (n2 * 16 + (lane / 16) * 8 + (lane % 8)) * LD +
                             kd * 16 + ((lane / 8) % 2) * 8);
-        mma_m16n8k16_bf16(s[2 * n2], qf[kd], bk[0], bk[1]);
-        mma_m16n8k16_bf16(s[2 * n2 + 1], qf[kd], bk[2], bk[3]);
+        mma_m16n8k16_bf16(s[2 * n2], qa, bk[0], bk[1]);
+        mma_m16n8k16_bf16(s[2 * n2 + 1], qa, bk[2], bk[3]);
       }
     }
 
@@ -718,7 +734,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int K, int S, float scale, int causal, int window, bool wg,
            cudaStream_t stream) {
   static unsigned done = 0;   // devices whose limit is set, one bit each
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D >= 64) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && (D == 64 || D == 128)) {
     if (wg)
       return fa3::launch<D>(q, k, v, o, B, H, K, S, scale, causal, window,
                             stream);
@@ -753,6 +769,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B, int 
     case 32: return launch<T, 32>(q, k, v, o, B, H, K, S, scale, causal, window, wg, s);
     case 64: return launch<T, 64>(q, k, v, o, B, H, K, S, scale, causal, window, wg, s);
     case 128: return launch<T, 128>(q, k, v, o, B, H, K, S, scale, causal, window, wg, s);
+    case 256: return launch<T, 256>(q, k, v, o, B, H, K, S, scale, causal, window, wg, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

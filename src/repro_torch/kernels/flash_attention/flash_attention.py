@@ -2,8 +2,8 @@
 
 Three bodies, one warp per 16 query rows and the online softmax in
 registers in both bf16 ones: ``wg`` (bf16, d 64 or 128: both products on
-wgmma, K/V tiles by TMA), ``mma`` (other bf16: mma.sync, a two-stage
-cp.async K/V ring) and ``fma`` (f32). ``plan`` gives the body and the
+wgmma, K/V tiles by TMA), ``mma`` (other bf16, d 16, 32 and 256 among
+them: mma.sync, a two-stage cp.async K/V ring) and ``fma`` (f32). ``plan`` gives the body and the
 launch geometry as a plain function of the shape, and ``kv_tiles`` the KV
 tiles a block of query rows visits; both mirror the source.
 
@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 _BODIES = {"fma": 0, "mma": 1, "wg": 2}
 
@@ -45,7 +45,7 @@ def plan(B: int, H: int, S: int, d: int, dtype: torch.dtype, *,
          aligned: bool = True) -> Plan:
     """``aligned``: q, k and v start on 16 bytes (TMA's condition)."""
     grid = (-(-S // BQ), H, B)
-    if dtype == torch.bfloat16 and d >= 64 and aligned:
+    if dtype == torch.bfloat16 and d in (64, 128) and aligned:
         # 1 KB alignment, the q tile and two (K, V) stages of d / 64 boxes,
         # three mbarriers
         return Plan("wg", grid, THREADS, 1024 + 5 * (d // 64) * WG_BOX + 24)

@@ -1,4 +1,4 @@
-"""Model code of the port (attention + MLP families)."""
+"""Model code of the port (every family of the JAX package)."""
 from repro_torch.models.model import (
     decode_step, forward, forward_hidden, init_cache, init_params, loss_fn,
     prefill)

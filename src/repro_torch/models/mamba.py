@@ -1,0 +1,221 @@
+"""Mamba-2 (SSD, state-space duality, arXiv:2405.21060) block
+(``repro.models.mamba``).
+
+Training and prefill use the chunked SSD algorithm: quadratic
+attention-like compute inside fixed-size chunks, a linear recurrence
+between chunks (the JAX ``lax.scan`` over chunks is a Python loop here,
+carrying the (B, nh, hp, N) state). Decode is the O(1) recurrent update.
+All of it is plain PyTorch: the JAX package has no Pallas kernel here.
+
+Projections are split (w_z, w_x, w_B, w_C, w_dt) as in the JAX package;
+CURing targets w_x (the pre-SiLU branch), which ``apply_w`` runs through
+``cur_matmul`` once folded.
+
+Cache writes are in place: the model's prefill / decode loop hands each
+layer a view of its stacked cache and keeps no returned tensor, so
+:func:`mamba_prefill` and :func:`mamba_decode` ``copy_`` the new conv
+tails and state into the cache they are given (and return it).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import apply_w, rms_norm
+
+
+def softplus(x):
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``) in the same form:
+    max(x, 0) + log1p(exp(-|x|)). ``F.softplus`` returns x itself above
+    its threshold 20, which differs from this by log1p(exp(-x)) < 2.1e-9
+    there, far inside 2e-5; this form keeps the JAX formula everywhere."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv. x (B, S, C), w (K, C), b (C,)."""
+    K = w.shape[0]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(K):
+        out = out + xp[:, i:i + S, :] * w[i]
+    return out + b
+
+
+def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, initial_state=None):
+    """Chunked SSD scan, in f32.
+
+    xh (B, S, nh, hp) inputs per head; dt (B, S, nh) positive step sizes;
+    A (nh,) negative decay rates; Bm / Cm (B, S, N) shared input / output
+    projections (one group). Returns (y (B, S, nh, hp) in xh's dtype,
+    final state (B, nh, hp, N) f32)."""
+    Bsz, S, nh, hp = xh.shape
+    N = Bm.shape[-1]
+    c = min(chunk, S)
+    pad = (-S) % c
+    if pad:
+        # dt = 0 on padded steps: dA = 0 -> state unchanged, increment 0,
+        # and the trailing outputs are dropped below
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    S_orig, S = S, S + pad
+    nc = S // c
+    f32 = torch.float32
+
+    x_c = xh.reshape(Bsz, nc, c, nh, hp).to(f32)
+    dt_c = dt.reshape(Bsz, nc, c, nh).to(f32)
+    B_c = Bm.reshape(Bsz, nc, c, N).to(f32)
+    C_c = Cm.reshape(Bsz, nc, c, N).to(f32)
+
+    dA = dt_c * A.to(f32)                                 # (B,nc,c,nh) <= 0
+    dA_cum = torch.cumsum(dA, dim=2)
+
+    # ---- intra-chunk (diagonal blocks) ----
+    CB = torch.einsum("bzin,bzjn->bzij", C_c, B_c)        # (B,nc,c,c)
+    causal = torch.ones(c, c, dtype=torch.bool, device=xh.device).tril()
+    # the exponent is masked before exp (the JAX package masks W after):
+    # the live entries are the same, and no exp of a positive sum past the
+    # causal edge can overflow into the product or its gradient
+    seg = dA_cum[:, :, :, None, :] - dA_cum[:, :, None, :, :]
+    seg = seg.masked_fill(~causal[None, None, :, :, None], float("-inf"))
+    W = CB[..., None] * torch.exp(seg) * dt_c[:, :, None, :, :]
+    y_diag = torch.einsum("bzijh,bzjhp->bzihp", W, x_c)
+
+    # ---- chunk summaries: the state each chunk gathers ----
+    decay_states = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)   # (B,nc,c,nh)
+    states = torch.einsum("bzjn,bzjh,bzjhp->bzhpn",
+                          B_c, decay_states * dt_c, x_c)     # (B,nc,nh,hp,N)
+
+    # ---- inter-chunk recurrence: the state entering each chunk ----
+    dA_sum = dA_cum[:, :, -1, :]                             # (B,nc,nh)
+    h = (torch.zeros((Bsz, nh, hp, N), dtype=f32, device=xh.device)
+         if initial_state is None else initial_state.to(f32))
+    h_in = []
+    for z in range(nc):
+        h_in.append(h)
+        h = h * torch.exp(dA_sum[:, z])[:, :, None, None] + states[:, z]
+    h_in = torch.stack(h_in, dim=1)                          # (B,nc,nh,hp,N)
+
+    # ---- inter-chunk contribution ----
+    y_off = torch.einsum("bzin,bzhpn->bzihp", C_c, h_in)
+    y_off = y_off * torch.exp(dA_cum)[..., None]
+    y = (y_diag + y_off).reshape(Bsz, S, nh, hp)
+    if pad:
+        y = y[:, :S_orig]
+    return y.to(xh.dtype), h
+
+
+def _gate_out(y, z, p, cfg):
+    """rms_norm(y * silu(z)) @ w_out, the block's output."""
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm_z"]["scale"],
+                 cfg.norm_eps)
+    return apply_w(y, p["w_out"])
+
+
+def _ssd(xb0, Bm0, Cm0, dt, p, cfg):
+    """Convolutions, activations and the SSD scan of the projected inputs.
+    Returns (y (B, S, di) before the gate, final state)."""
+    B, S, _ = xb0.shape
+    nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    xb = F.silu(_causal_conv(xb0, p["conv_x"], p["conv_x_b"]))
+    Bm = F.silu(_causal_conv(Bm0, p["conv_B"], p["conv_B_b"]))
+    Cm = F.silu(_causal_conv(Cm0, p["conv_C"], p["conv_C_b"]))
+    dt = softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())                       # (nh,)
+    xh = xb.reshape(B, S, nh, hp)
+    y, state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y = y + xh * p["D"].to(y.dtype)[None, None, :, None]
+    return y.reshape(B, S, cfg.d_inner), state
+
+
+def _project(x, p):
+    return (apply_w(x, p["w_z"]), apply_w(x, p["w_x"]), apply_w(x, p["w_B"]),
+            apply_w(x, p["w_C"]), apply_w(x, p["w_dt"]))
+
+
+def mamba_forward(x, p, cfg, *, return_state: bool = False):
+    """Mamba-2 block. x (B, S, D) -> (B, S, D)."""
+    z, xb0, Bm0, Cm0, dt = _project(x, p)
+    y, state = _ssd(xb0, Bm0, Cm0, dt, p, cfg)
+    out = _gate_out(y, z, p, cfg)
+    if return_state:
+        return out, state
+    return out
+
+
+def mamba_prefill(x, p, cfg, cache):
+    """Forward + recurrent-cache capture. Writes into ``cache`` in place
+    the last K - 1 raw pre-conv inputs (left-padded with zeros when
+    S < K - 1) and the final state. Returns (out, cache)."""
+    S = x.shape[1]
+    K = cfg.ssm_conv
+    z, xb0, Bm0, Cm0, dt = _project(x, p)
+
+    def tail(a):
+        pad = max(0, (K - 1) - S)
+        return F.pad(a, (0, 0, pad, 0))[:, -(K - 1):, :]
+
+    y, state = _ssd(xb0, Bm0, Cm0, dt, p, cfg)
+    for name, t in (("conv_x", tail(xb0)), ("conv_B", tail(Bm0)),
+                    ("conv_C", tail(Cm0)), ("state", state)):
+        cache[name].copy_(t)
+    return _gate_out(y, z, p, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_mamba_cache(cfg, batch: int, dtype, device=None):
+    """Conv tails in the model's dtype, the state in f32 (as in JAX)."""
+    di, N, nh, hp = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+                     cfg.ssm_head_dim)
+    K = cfg.ssm_conv
+    return {
+        "conv_x": torch.zeros((batch, K - 1, di), dtype=dtype, device=device),
+        "conv_B": torch.zeros((batch, K - 1, N), dtype=dtype, device=device),
+        "conv_C": torch.zeros((batch, K - 1, N), dtype=dtype, device=device),
+        "state": torch.zeros((batch, nh, hp, N), dtype=torch.float32,
+                             device=device),
+    }
+
+
+def _conv_step(x_t, cache, w, b):
+    """x_t (B, C); cache (B, K-1, C) the last inputs. Returns (y_t, new
+    tail)."""
+    window = torch.cat([cache, x_t[:, None, :]], dim=1)      # (B, K, C)
+    y = torch.einsum("bkc,kc->bc", window, w) + b
+    return y, window[:, 1:, :]
+
+
+def mamba_decode(x, p, cfg, cache):
+    """Single-token recurrent update. x (B, 1, D) -> (B, 1, D); the conv
+    tails and the state are written into ``cache`` in place. Returns
+    (out, cache)."""
+    B = x.shape[0]
+    di, nh, hp = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xb, Bm, Cm, dt = _project(x[:, 0, :], p)
+
+    xb, c_x = _conv_step(xb, cache["conv_x"], p["conv_x"], p["conv_x_b"])
+    Bm, c_B = _conv_step(Bm, cache["conv_B"], p["conv_B"], p["conv_B_b"])
+    Cm, c_C = _conv_step(Cm, cache["conv_C"], p["conv_C"], p["conv_C_b"])
+    xb, Bm, Cm = F.silu(xb), F.silu(Bm), F.silu(Cm)
+
+    dt = softplus(dt.float() + p["dt_bias"])                 # (B, nh)
+    A = -torch.exp(p["A_log"].float())
+    dA = torch.exp(dt * A)                                   # (B, nh)
+
+    xh = xb.reshape(B, nh, hp).float()
+    inc = torch.einsum("bh,bn,bhp->bhpn", dt, Bm.float(), xh)
+    state = cache["state"] * dA[:, :, None, None] + inc
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), state)
+    y = y + xh * p["D"].float()[None, :, None]
+    y = y.reshape(B, di).to(x.dtype)
+    out = _gate_out(y, z, p, cfg)[:, None, :]
+    for name, t in (("conv_x", c_x), ("conv_B", c_B), ("conv_C", c_C),
+                    ("state", state)):
+        cache[name].copy_(t)
+    return out, cache

@@ -14,8 +14,9 @@ per-layer views and return it.
 differentiable, as the JAX functions are (training and healing take their
 gradients); inference callers run them under their own ``no_grad``.
 
-This slice ports the attention (ATTN / ATTN_LOCAL) + MLP families; MoE and
-Mamba blocks raise ``NotImplementedError``.
+Every family of the JAX package runs: attention (ATTN / ATTN_LOCAL) and
+Mamba-2 (MAMBA) sequence mixers, MLP and MoE channel mixers, and blocks
+with no channel mixer (mamba2's ``BlockSpec(MAMBA, "none")``).
 """
 from __future__ import annotations
 
@@ -29,18 +30,12 @@ from repro_torch.bridge import flatten_up_to, tree_map, unflatten_as
 from repro_torch.configs.base import (
     ATTN, ATTN_LOCAL, MAMBA, MLP, MOE, ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models.layers import norm
 from repro_torch.models.mlp import mlp_forward
+from repro_torch.models.moe import moe_forward
 
 Params = Dict[str, Any]
-
-_LATER = {MAMBA: "the other-families slice (models/mamba.py)",
-          MOE: "the other-families slice (models/moe.py)"}
-
-
-def _not_ported(kind: str):
-    return NotImplementedError(
-        f"{kind} blocks are not ported yet; they come with {_LATER[kind]}")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -70,6 +65,58 @@ def embed_init(gen, v: int, d: int, dtype, device):
     return w.to(dtype)
 
 
+def _init_moe_experts(gen, cfg: ModelConfig, reps: int, dtype, device):
+    """Router (reps, D, E) in f32; experts (reps, E, D, F) / (reps, E, F,
+    D); the shared expert's dense MLP when ``n_shared_experts`` is set."""
+    E, D = cfg.n_experts, cfg.d_model
+    F = cfg.moe_d_ff or cfg.d_ff
+
+    def experts(m, n):
+        return dense_init(gen, reps * E, m, n, dtype, device).reshape(
+            reps, E, m, n)
+
+    p = {"router": dense_init(gen, reps, D, E, torch.float32, device),
+         "w_gate": experts(D, F), "w_up": experts(D, F),
+         "w_down": experts(F, D)}
+    if cfg.n_shared_experts:
+        Fs = cfg.n_shared_experts * F
+        p["shared"] = {"w_gate": dense_init(gen, reps, D, Fs, dtype, device),
+                       "w_up": dense_init(gen, reps, D, Fs, dtype, device),
+                       "w_down": dense_init(gen, reps, Fs, D, dtype, device)}
+    return p
+
+
+def _init_mamba(gen, cfg: ModelConfig, reps: int, dtype, device) -> Params:
+    """The Mamba-2 mixer's params; A_log, D and dt_bias in f32 (JAX's
+    init: A in [1, 16], dt_bias = softplus^-1 of dt ~ logU[1e-3, 0.1])."""
+    D = cfg.d_model
+    di, N, nh, Kc = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+    f32 = torch.float32
+
+    def w(m, n):
+        return dense_init(gen, reps, m, n, dtype, device)
+
+    def zeros(n):
+        return torch.zeros((reps, n), dtype=dtype, device=device)
+
+    p = {"w_z": w(D, di), "w_x": w(D, di), "w_B": w(D, N), "w_C": w(D, N),
+         "w_dt": w(D, nh),
+         "conv_x": w(Kc, di), "conv_x_b": zeros(di),
+         "conv_B": w(Kc, N), "conv_B_b": zeros(N),
+         "conv_C": w(Kc, N), "conv_C_b": zeros(N)}
+    a0 = torch.linspace(1.0, 16.0, nh, dtype=f32, device=device)
+    p["A_log"] = torch.log(a0)[None].repeat(reps, 1)
+    p["D"] = torch.ones((reps, nh), dtype=f32, device=device)
+    u = torch.rand((reps, nh), generator=gen, dtype=f32, device=device)
+    lo, hi = math.log(1e-3), math.log(0.1)
+    dt0 = torch.exp(lo + (hi - lo) * u)
+    p["dt_bias"] = dt0 + torch.log(-torch.expm1(-dt0))
+    p["norm_z"] = {"scale": torch.ones((reps, di), dtype=dtype,
+                                       device=device)}
+    p["w_out"] = w(di, D)
+    return p
+
+
 def init_block(gen, spec, cfg: ModelConfig, reps: int, device) -> Params:
     """Stacked params of ``reps`` blocks of one pattern position."""
     D = cfg.d_model
@@ -90,8 +137,8 @@ def init_block(gen, spec, cfg: ModelConfig, reps: int, device) -> Params:
         if cfg.qk_norm:
             p["q_norm"] = ones(hd)
             p["k_norm"] = ones(hd)
-    else:
-        raise _not_ported(spec.mixer)
+    elif spec.mixer == MAMBA:
+        p.update(_init_mamba(gen, cfg, reps, dtype, device))
     if spec.mlp == MLP:
         if cfg.parametric_norm:
             p["norm2"] = {"scale": ones(D)}
@@ -100,8 +147,10 @@ def init_block(gen, spec, cfg: ModelConfig, reps: int, device) -> Params:
             p["w_gate"] = dense_init(gen, reps, D, F, dtype, device)
         p["w_up"] = dense_init(gen, reps, D, F, dtype, device)
         p["w_down"] = dense_init(gen, reps, F, D, dtype, device)
-    else:
-        raise _not_ported(spec.mlp)
+    elif spec.mlp == MOE:
+        if cfg.parametric_norm:
+            p["norm2"] = {"scale": ones(D)}
+        p.update(_init_moe_experts(gen, cfg, reps, dtype, device))
     return p
 
 
@@ -133,20 +182,25 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
 # forward
 # ---------------------------------------------------------------------------
 
+def channel_mix(x, p, spec, cfg):
+    """x + the block's channel mixer (MLP, MoE, or none)."""
+    if spec.mlp == MLP:
+        x = x + mlp_forward(norm(x, p.get("norm2"), cfg), p, cfg)
+    elif spec.mlp == MOE:
+        x = x + moe_forward(norm(x, p.get("norm2"), cfg), p, cfg)
+    return x
+
+
 def block_forward(x, p, spec, cfg, positions):
     h = norm(x, p.get("norm1"), cfg)
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
         a = attn.attn_forward(h, p, cfg, positions, window=win)
+    elif spec.mixer == MAMBA:
+        a = mb.mamba_forward(h, p, cfg)
     else:
-        raise _not_ported(spec.mixer)
-    x = x + a
-    if spec.mlp == MLP:
-        h = norm(x, p.get("norm2"), cfg)
-        x = x + mlp_forward(h, p, cfg)
-    else:
-        raise _not_ported(spec.mlp)
-    return x
+        raise ValueError(spec.mixer)
+    return channel_mix(x + a, p, spec, cfg)
 
 
 def _embed(params, cfg, batch):
@@ -247,7 +301,9 @@ def _init_block_cache(spec, cfg, batch, max_len, dtype, device):
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
         return attn.init_attn_cache(cfg, batch, max_len, win, dtype, device)
-    raise _not_ported(spec.mixer)
+    if spec.mixer == MAMBA:
+        return mb.init_mamba_cache(cfg, batch, dtype, device)
+    return {}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
@@ -272,14 +328,11 @@ def _block_prefill(x, p, c, spec, cfg, positions):
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
         a, c = attn.attn_prefill(h, p, cfg, positions, c, window=win)
+    elif spec.mixer == MAMBA:
+        a, c = mb.mamba_prefill(h, p, cfg, c)
     else:
-        raise _not_ported(spec.mixer)
-    x = x + a
-    if spec.mlp == MLP:
-        x = x + mlp_forward(norm(x, p.get("norm2"), cfg), p, cfg)
-    else:
-        raise _not_ported(spec.mlp)
-    return x, c
+        raise ValueError(spec.mixer)
+    return channel_mix(x + a, p, spec, cfg), c
 
 
 def _block_decode(x, p, c, spec, cfg, pos):
@@ -287,14 +340,11 @@ def _block_decode(x, p, c, spec, cfg, pos):
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
         a, c = attn.attn_decode(h, p, cfg, c, pos, window=win)
+    elif spec.mixer == MAMBA:
+        a, c = mb.mamba_decode(h, p, cfg, c)
     else:
-        raise _not_ported(spec.mixer)
-    x = x + a
-    if spec.mlp == MLP:
-        x = x + mlp_forward(norm(x, p.get("norm2"), cfg), p, cfg)
-    else:
-        raise _not_ported(spec.mlp)
-    return x, c
+        raise ValueError(spec.mixer)
+    return channel_mix(x + a, p, spec, cfg), c
 
 
 def _apply_groups_cached(x, params, cache, cfg, block_fn):

@@ -31,12 +31,11 @@ from repro_torch.attention.prefill import (         # noqa: F401 (re-export)
     reconstructed_bytes_per_prefill)
 from repro_torch.attention.registry import (        # noqa: F401 (re-export)
     fold_q, resolve_paged, resolve_prefill, unfold_o)
-from repro_torch.configs.base import ATTN_LOCAL, MLP, MOE, ModelConfig
+from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_w, norm
-from repro_torch.models.mlp import mlp_forward
-from repro_torch.models.model import _embed, _unembed, iter_layer_params
-from repro_torch.models.model import torch_dtype
+from repro_torch.models.model import (
+    _embed, _unembed, channel_mix, iter_layer_params, torch_dtype)
 from repro_torch.serving import paged_cache as pcache
 from repro_torch.serving.sampling import (
     greedy_tokens, request_generator, sample_tokens)
@@ -83,16 +82,6 @@ def _layer_proj(cache: dict, li: int):
         return None, None, None, None
     return (proj["qk"][li], proj["uk"][li],
             proj["qv"][li], proj["uv"][li])
-
-
-def _channel_mix(x, p, spec, cfg):
-    if spec.mlp == MLP:
-        x = x + mlp_forward(norm(x, p.get("norm2"), cfg), p, cfg)
-    elif spec.mlp == MOE:
-        raise NotImplementedError(
-            "MoE blocks are not yet ported to repro_torch; they come with "
-            "the other-families slice (models/moe.py)")
-    return x
 
 
 def _device_of(cache: dict) -> torch.device:
@@ -147,7 +136,7 @@ def paged_prefill(params, cfg: ModelConfig, pc: pcache.PagedConfig,
         pcache.scatter_rows(cache["k"][li], kc, rows)
         pcache.scatter_rows(cache["v"][li], vc, rows)
         x = x + apply_w(o.reshape(B, S, -1), p["wo"])
-        x = _channel_mix(x, p, spec, cfg)
+        x = channel_mix(x, p, spec, cfg)
     x = norm(x, params.get("final_norm"), cfg)
     x_last = x[torch.arange(B, device=dev), last][:, None]
     logits = _unembed(params, cfg, x_last)[:, 0, :]
@@ -224,7 +213,7 @@ def paged_verify(params, cfg: ModelConfig, pc: pcache.PagedConfig,
                         scale, win, q_span=S, paged_kernel=paged_kernel)
         o = o.reshape(B, K, S, G, -1).permute(0, 2, 1, 3, 4)
         x = x + apply_w(o.reshape(B, S, -1), p["wo"])
-        x = _channel_mix(x, p, spec, cfg)
+        x = channel_mix(x, p, spec, cfg)
     x = norm(x, params.get("final_norm"), cfg)
     return _unembed(params, cfg, x), cache                # (B, S, V)
 
@@ -301,7 +290,7 @@ def collect_kv(params, cfg: ModelConfig, tokens: torch.Tensor
         qg = attn._group_q(q, cfg.n_kv_heads)
         o = attn._mix(qg, k, v, positions, win, scale, cfg)
         x = x + apply_w(o.reshape(B, S, -1), p["wo"])
-        x = _channel_mix(x, p, spec, cfg)
+        x = channel_mix(x, p, spec, cfg)
     return ks, vs
 
 

@@ -5,6 +5,11 @@ import dataclasses
 
 import jax
 import numpy as np
+import torch
+
+from repro.data.tokens import DataConfig as JaxDataConfig
+from repro.data.tokens import SyntheticLM as JaxSyntheticLM
+from repro.models import init_params as jax_init_params
 
 from repro_torch import bridge
 from repro_torch.configs import base as tbase
@@ -22,6 +27,33 @@ def port_cfg(jcfg):
 
 def port_params(jparams, device="cpu"):
     return bridge.to_torch(jax.device_get(jparams), device)
+
+
+def jax_backed(monkeypatch, arch, *modules):
+    """Launcher modules (the port's cure / plan / serve) fed the JAX
+    run's params (``init_params``) and calibration batches
+    (``SyntheticLM``) for the SMOKE config of ``arch``."""
+    from repro.configs import get_smoke as jax_get_smoke
+    jcfg = jax_get_smoke(arch)
+
+    def init(seed, cfg, device):
+        return port_params(jax_init_params(jax.random.PRNGKey(seed), jcfg),
+                           device)
+
+    class Data:
+        def __init__(self, dc, device):
+            self.ds = JaxSyntheticLM(JaxDataConfig(
+                vocab_size=dc.vocab_size, seq_len=dc.seq_len,
+                global_batch=dc.global_batch, seed=dc.seed))
+            self.device = device
+
+        def batch_at(self, i):
+            return {k: torch.from_numpy(np.array(v)).long().to(self.device)
+                    for k, v in self.ds.batch_at(i).items()}
+
+    for mod in modules:
+        monkeypatch.setattr(mod, "init_params", init)
+        monkeypatch.setattr(mod, "SyntheticLM", Data)
 
 
 def rel_err(y, yr) -> float:

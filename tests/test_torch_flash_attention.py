@@ -41,6 +41,8 @@ def _qkv(B, H, K, S, d, dtype, seed):
     (1, 8, 1, 128, 32, 0),     # MQA
     (1, 4, 2, 128, 32, 48),    # sliding window
     (1, 2, 2, 64, 64, 16),
+    (1, 4, 1, 96, 256, 0),     # gemma3's head dim, MQA
+    (1, 4, 1, 128, 256, 40),   # d 256 with a window
 ])
 def test_flash_attention_matches_jax(B, H, K, S, d, win, dtype):
     (jq, jk, jv), (tq, tk, tv) = _qkv(B, H, K, S, d, dtype, 3)
@@ -102,7 +104,27 @@ def test_registry_adaptor_pads_feature_dim(d):
 
 
 def test_registry_adaptor_refuses_dims_above_the_kernel():
+    """d 129 .. 256 pad to the kernel's widest width, 256 (gemma3's head
+    dim); above it the adaptor raises."""
     from repro_torch.attention import registry
     assert registry._padded_dim(128) == 128
-    with pytest.raises(ValueError, match="above 128"):
-        registry._padded_dim(129)
+    assert registry._padded_dim(129) == registry._padded_dim(256) == 256
+    with pytest.raises(ValueError, match="above 256"):
+        registry._padded_dim(257)
+
+
+@pytest.mark.parametrize("d", [160, 256])
+def test_registry_adaptor_at_head_dim_256(d):
+    """The adaptor at gemma3's head dim (exact) and at a width padded up
+    to it, on CPU tensors (the plain version), against the JAX op."""
+    from repro_torch.attention import registry
+    B, S, K, G = 1, 48, 1, 4
+    (jq, jk, jv), (q, k, v) = _qkv(B, K * G, K, S, d, "float32", seed=d)
+    qg = q.reshape(B, K, G, S, d).permute(0, 3, 1, 2, 4)
+    pos = torch.arange(S)[None].expand(B, S)
+    o = registry._mix_flash_cuda(qg, k.transpose(1, 2), v.transpose(1, 2),
+                                 pos, pos, 16, d ** -0.5, chunk=0)
+    o = o.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, d)
+    _assert_close(o.numpy(), np.asarray(jax_flash_op(
+        jq, jk, jv, window=16, scale=d ** -0.5)), "float32")
+    assert registry._padded_dim(d) == 256

@@ -109,6 +109,23 @@ def test_flash_kernel_main_shapes_match_plain(gen, B, H, K, S, d, win):
     assert rel_err(o.cpu(), ref.cpu()) < 2e-2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,win", [
+    (1, 4, 1, 100, 0), (1, 4, 4, 130, 8), (2, 4, 1, 200, 0),
+    (4, 4, 1, 1024, 512)])                     # gemma3-1b's attention
+def test_flash_kernel_head_dim_256_matches_plain(gen, B, H, K, S, win,
+                                                 dtype):
+    q, k, v = (_randn(gen, s, dtype) for s in
+               ((B, H, S, 256), (B, K, S, 256), (B, K, S, 256)))
+    before = fa.launches
+    o = fa.flash_attention(q, k, v, window=win, scale=256 ** -0.5)
+    o2 = fa.flash_attention(q, k, v, window=win, scale=256 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2 and torch.equal(o, o2)
+    ref = flash_attention_ref(q, k, v, window=win, scale=256 ** -0.5)
+    assert rel_err(o.cpu(), ref.cpu()) < _TOL[dtype]
+
+
 def test_unaligned_bf16_inputs_take_the_untiled_bodies(gen):
     """A base pointer off 16 bytes cannot be described by TMA: the wrappers
     route it to cur_matmul's one-pass body and flash's mma body."""

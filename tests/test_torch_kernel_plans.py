@@ -129,6 +129,7 @@ _FLASH_CASES = [  # B, H, K, S, d, window, causal
     (1, 4, 2, 200, 64, 0, False), (4, 32, 8, 512, 128, 0, True),
     (2, 32, 8, 512, 128, 128, True), (1, 8, 2, 1024, 64, 0, True),
     (1, 4, 2, 1024, 64, 100, False),
+    (4, 4, 1, 1024, 256, 512, True), (1, 4, 1, 100, 256, 0, True),
 ]
 
 
@@ -138,7 +139,7 @@ def test_flash_plan_covers_every_query_row(B, H, K, S, d, win, causal,
                                            dtype):
     p = fa.plan(B, H, S, d, dtype)
     if dtype == torch.bfloat16:   # wgmma and TMA for d 64 and 128
-        assert p.body == ("wg" if d >= 64 else "mma")
+        assert p.body == ("wg" if d in (64, 128) else "mma")
         assert fa.plan(B, H, S, d, dtype, aligned=False).body == "mma"
         assert fa.BQ == 16 * p.threads // 32    # a warp per 16 query rows
     else:
@@ -171,12 +172,24 @@ def test_flash_kv_tiles_hold_every_live_key(B, H, K, S, d, win, causal):
                 assert j in (tiles.start, tiles.stop - 1), (q0, j)
 
 
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", [d for d in fa.HEAD_DIMS if d <= 128])
 def test_flash_plan_shared_memory_fits_two_blocks_per_sm(d):
     # the bf16 bodies' K/V rings and q tile leave room for two blocks per SM
     for aligned in (True, False):
         p = fa.plan(1, 1, 64, d, torch.bfloat16, aligned=aligned)
         assert 2 * p.smem_bytes <= _SMEM_LIMIT
+
+
+def test_flash_plan_at_head_dim_256_fits_one_block():
+    """d 256 (gemma3): the mma body's q tile and two K/V stages (165 KB)
+    and the f32 body's tiles (210 KB) fit one block's 227 KB; bf16 never
+    takes the wg body there."""
+    for aligned in (True, False):
+        p = fa.plan(4, 4, 1024, 256, torch.bfloat16, aligned=aligned)
+        assert p.body == "mma" and p.smem_bytes == 168_960
+    p = fa.plan(4, 4, 1024, 256, torch.float32)
+    assert p.body == "fma" and p.smem_bytes == 214_784
+    assert p.smem_bytes <= _SMEM_LIMIT
 
 
 _SMEM_PER_SM = 233_472                         # an SM's shared memory

@@ -9,23 +9,19 @@ import io
 import json
 import os
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 from repro.configs import get_smoke as jax_get_smoke
-from repro.data.tokens import DataConfig as JaxDataConfig
-from repro.data.tokens import SyntheticLM as JaxSyntheticLM
 from repro.launch import cure as jax_cure
 from repro.launch import plan as jax_plan_cli
-from repro.models import init_params as jax_init_params
 from repro_torch import obs
 from repro_torch.launch import cure as tcure
 from repro_torch.launch import plan as tplan_cli
 from repro_torch.plan import CompressionPlan
 
-from _torch_helpers import port_params
+from _torch_helpers import jax_backed
 
 torch.set_num_threads(1)
 
@@ -81,28 +77,7 @@ def test_cure_budget_emit_plan_then_plan_reproduces(tmp_path, svd):
 
 
 def _jax_backed(monkeypatch, arch):
-    """The port's cure/plan launchers fed the JAX run's params and
-    calibration batches."""
-    jcfg = jax_get_smoke(arch)
-
-    def init(seed, cfg, device):
-        return port_params(jax_init_params(jax.random.PRNGKey(seed), jcfg),
-                           device)
-
-    class Data:
-        def __init__(self, dc, device):
-            self.ds = JaxSyntheticLM(JaxDataConfig(
-                vocab_size=dc.vocab_size, seq_len=dc.seq_len,
-                global_batch=dc.global_batch, seed=dc.seed))
-            self.device = device
-
-        def batch_at(self, i):
-            return {k: torch.from_numpy(np.array(v)).long().to(self.device)
-                    for k, v in self.ds.batch_at(i).items()}
-
-    for mod in (tcure, tplan_cli):
-        monkeypatch.setattr(mod, "init_params", init)
-        monkeypatch.setattr(mod, "SyntheticLM", Data)
+    jax_backed(monkeypatch, arch, tcure, tplan_cli)
 
 
 def test_jax_plan_executes_in_port_cure(tmp_path, monkeypatch):
