@@ -186,14 +186,28 @@ nonzero:
               gemma3-1b at full size: one forward through
               flash_attention at d 256, the paged runtime at r 256 past
               the 512 window against forward(), the Server
+ 12. dist     (after 11, before 8) the distributed layer at world size 1:
+              an NCCL process group (a FileStore under build/) and a 1 x 1
+              ("data", "model") mesh; (a) mixtral-8x22b at its own widths,
+              2 of 56 layers, bf16, layer 1's wq / wk CURed (r_max 256,
+              folded): forward and loss_fn under the mesh (moe_impl
+              "a2a": the routed expert-parallel body) against mesh=None
+              (moe_dense) at capacity 8.0 (2e-2), at 1.25 the assignments
+              dropped; both forwards' device ms, one layer's a2a body
+              against moe_dense alone at 4 x 512 tokens and the a2a body
+              at 1 x 65,536; generate() under the mesh == mesh=None in
+              f32; (b) olmo-1b in f32 (phase 9a's batch): the meshed train
+              step and EF step (compressed_psum's all-gather) against the
+              unmeshed ones (losses within 2e-5; bitwise printed); (c)
+              compressed_psum == dq8(q8(x)) bit for bit
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernel table.
 ``--phases 1,2,3`` runs only the phases named (for a first check of a new
 kernel; phase 9 without 6 makes llama3.1-8b's weights itself, phase 10
 needs 6 and trains its REPRO model without 9, phase 11 needs none of the
-others: ``--phases 1,2,11``); the kernel table and the last line need
-every phase.
+others: ``--phases 1,2,11``, nor does 12: ``--phases 1,2,12``); the
+kernel table and the last line need every phase.
 """
 import argparse
 import gc
@@ -2069,11 +2083,11 @@ def serve_legacy(params, cfg):
     rec = {"steps": 0, "logits": {}}
     real_prefill, real_decode = engine.prefill, engine.decode_step
 
-    def prefill(prm, c, batch, cache):
+    def prefill(prm, c, batch, cache, mesh=None):
         torch.cuda.synchronize()
         c0, f0 = cm.launches, fa.launches
         t0 = time.perf_counter()
-        out = real_prefill(prm, c, batch, cache)
+        out = real_prefill(prm, c, batch, cache, mesh)
         torch.cuda.synchronize()
         rec["prefill_s"] = time.perf_counter() - t0
         rec["prefill_launches"] = (cm.launches - c0, fa.launches - f0)
@@ -2082,8 +2096,8 @@ def serve_legacy(params, cfg):
         rec["logits"][0] = out[0].clone()
         return out
 
-    def decode_step(prm, c, batch, cache, pos):
-        out = real_decode(prm, c, batch, cache, pos)
+    def decode_step(prm, c, batch, cache, pos, mesh=None):
+        out = real_decode(prm, c, batch, cache, pos, mesh)
         rec["steps"] += 1
         if rec["steps"] in ENGINE_CHECK_STEPS:
             rec["logits"][rec["steps"]] = out[0].clone()
@@ -3618,18 +3632,18 @@ def _engine_vs_forward(params, cfg, B, S, n_new, label, tape=None):
     real_prefill, real_decode = engine.prefill, engine.decode_step
     mark = tape.at if tape is not None else (lambda start, n: None)
 
-    def prefill(prm, c, batch, cache):
+    def prefill(prm, c, batch, cache, mesh=None):
         mark(0, S)
-        out = real_prefill(prm, c, batch, cache)
+        out = real_prefill(prm, c, batch, cache, mesh)
         rec[0] = out[0].clone()
         torch.cuda.synchronize()
         rec["t0"] = time.perf_counter()
         return out
 
-    def decode_step(prm, c, batch, cache, pos):
+    def decode_step(prm, c, batch, cache, pos, mesh=None):
         steps[0] += 1
         mark(S - 1 + steps[0], 1)
-        out = real_decode(prm, c, batch, cache, pos)
+        out = real_decode(prm, c, batch, cache, pos, mesh)
         if steps[0] in ENGINE_CHECK_STEPS:
             rec[steps[0]] = out[0].clone()
         return out
@@ -3741,10 +3755,11 @@ def _paged_vs_forward(params, cfg, prompt, n_dec, label, tape=None,
     return rels, out
 
 
-def _kind_trace(params, cfg, batch):
+def _kind_trace(params, cfg, batch, mesh=None):
     """Device time of one forward by layer kind, from torch.profiler's
     record_function scopes around each kind's function (inclusive:
-    mamba_block holds its ssd_scan and its cur_matmul)."""
+    mamba_block holds its ssd_scan and its cur_matmul; moe_forward is
+    moe_dense without a mesh)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     import repro_torch.kernels.cur_matmul.ops as cm_ops
@@ -3752,7 +3767,7 @@ def _kind_trace(params, cfg, batch):
     import repro_torch.models.mamba as mb_mod
     import repro_torch.models.model as model_mod
     from repro_torch.models import forward
-    scopes = [(model_mod, "moe_forward", "moe_dense"),
+    scopes = [(model_mod, "moe_forward", "moe_forward"),
               (model_mod, "mlp_forward", "mlp"),
               (mb_mod, "mamba_forward", "mamba_block"),
               (mb_mod, "ssd_chunked", "ssd_scan"),
@@ -3769,11 +3784,11 @@ def _kind_trace(params, cfg, batch):
         setattr(mod, fn, wrapped)
     try:
         with torch.no_grad():
-            forward(params, cfg, batch)
+            forward(params, cfg, batch, mesh)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                forward(params, cfg, batch)
+                forward(params, cfg, batch, mesh)
                 torch.cuda.synchronize()
     finally:
         for mod, fn, real in saved:
@@ -4158,10 +4173,307 @@ def phase_families():
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the distributed layer at world size 1 (NCCL, a 1 x 1 mesh)
+# ---------------------------------------------------------------------------
+
+# phase 12's FileStore (git-ignored; deleted at its end)
+DIST_DIR = os.path.join(ROOT, "build", "chip_smoke_dist")
+DIST_MIXTRAL_LAYERS = 2                       # of 56: ~10 GB in bf16
+DIST_TOKENS = (4, 512)                        # the forwards' batch
+DIST_LONG = 65_536                            # mixtral's 64K context, B 1
+DIST_GEN = (2, 64, 8)                         # B, prompt, new (f32)
+DIST_OLMO = (8, 128, 2)                       # B, S, steps (phase 9a's)
+
+
+class _DropTape:
+    """Counts the assignments the a2a body drops, by wrapping
+    ``repro_torch.models.moe._moe_body_a2a`` (the routing is recomputed
+    from the body's inputs, so a counted run is not a timed one)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real, self.dropped, self.assigned = moe._moe_body_a2a, 0, 0
+
+        def body(xs, router, *w, cfg, **kw):
+            *_, rank, capE = moe._assignments(xs, router, cfg)
+            self.dropped += int((rank >= capE).sum())
+            self.assigned += rank.numel()
+            return self.real(xs, router, *w, cfg=cfg, **kw)
+
+        moe._moe_body_a2a = body
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._moe_body_a2a = self.real
+
+
+def dist_mixtral(mesh):
+    """12a: mixtral-8x22b at its own widths, 2 of 56 layers, bf16, one
+    layer CURed (wq, wk at r_max 256, folded: cur_matmul): the forward
+    and loss_fn under the 1 x 1 mesh (moe_impl "a2a": the routed body)
+    against mesh=None (moe_dense); the a2a body against moe_dense alone;
+    the a2a body at the 64K context; generate() under the mesh against
+    mesh=None in f32."""
+    import torch
+    from repro_torch.configs import CURConfig, get_config
+    from repro_torch.core import calibrate, compress_model
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.models import forward, init_params, loss_fn
+    from repro_torch.models import moe
+    from repro_torch.serve import generate
+    full = get_config("mixtral-8x22b")
+    cfg = full.replace(n_layers=DIST_MIXTRAL_LAYERS,
+                       groups=((full.groups[0][0], DIST_MIXTRAL_LAYERS),))
+    t0 = time.perf_counter()
+    params = init_params(0, cfg, "cuda")
+    B, S = DIST_TOKENS
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=0),
+                        "cuda").batch_at(0)
+    with torch.no_grad():
+        calib = calibrate(params, cfg, [batch])
+    # layer 1 (the angular selection keeps the first and last layers)
+    params, cfg, info = compress_model(params, cfg, CURConfig(
+        enabled=True, r_max=256, n_compress_layers=1, fold_u=True), calib,
+        layers=[1])
+    del calib
+    torch.cuda.synchronize()
+    say(f"  12a mixtral-8x22b: {DIST_MIXTRAL_LAYERS} of {full.n_layers} "
+        f"layers (d {cfg.d_model}, E {cfg.n_experts}, k "
+        f"{cfg.n_experts_per_tok}, F {cfg.moe_d_ff}, {cfg.dtype}), moe_impl "
+        f"{cfg.moe_impl}; CURed layer {info.layers} "
+        f"({', '.join(sorted({w.name for w in info.weights}))} at r "
+        f"{sorted({w.rank for w in info.weights})}, folded); made in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    nodrop = cfg.replace(capacity_factor=8.0)
+    out = {}
+    with torch.no_grad():
+        ref = forward(params, cfg, batch)
+        mesh8 = forward(params, nodrop, batch, mesh)
+        with _DropTape() as tape:
+            mesh125 = forward(params, cfg, batch, mesh)
+        out["rel8"] = rel_err(mesh8, ref)
+        out["rel125"] = rel_err(mesh125, ref)
+        l_ref = float(loss_fn(params, cfg, batch))
+        l8 = float(loss_fn(params, nodrop, batch, mesh))
+        out["loss_rel"] = abs(l8 - l_ref) / abs(l_ref)
+        finite = bool(torch.isfinite(mesh8).all() and
+                      torch.isfinite(mesh125).all())
+        del ref, mesh8, mesh125
+        say(f"    forward logits (B {B}, S {S}) under the mesh vs "
+            f"mesh=None: capacity 8.0 {out['rel8']:.3e} (bound "
+            f"{BF16_TOL}); capacity {cfg.capacity_factor} "
+            f"{out['rel125']:.3e} with {tape.dropped} of {tape.assigned} "
+            f"assignments dropped; loss_fn {l8:.6f} vs {l_ref:.6f} "
+            f"(rel {out['loss_rel']:.3e})")
+        ms = {"mesh=None (moe_dense)": device_ms(
+                  lambda: forward(params, cfg, batch), n=5),
+              "mesh, capacity 1.25": device_ms(
+                  lambda: forward(params, cfg, batch, mesh), n=5),
+              "mesh, capacity 8.0": device_ms(
+                  lambda: forward(params, nodrop, batch, mesh), n=5)}
+        say("    forward device ms: " + "; ".join(
+            f"{k} {v:.3f}" for k, v in ms.items()))
+        for label, m in (("mesh=None", None), ("mesh, capacity 1.25", mesh)):
+            kind, busy = _kind_trace(params, cfg, batch, m)
+            moe_ms = kind.get("moe_forward", 0.0)
+            say(f"    trace of one forward, {label}: kernels busy "
+                f"{busy:.3f} ms, moe_forward {moe_ms:.3f} ms "
+                f"({moe_ms / max(busy, 1e-9):.1%}), attention "
+                f"{kind.get('attention', 0.0):.3f}, cur_matmul kernels "
+                f"{kind.get('cur_matmul kernels', 0.0):.3f}, "
+                f"flash_attention kernels "
+                f"{kind.get('flash_attention kernels', 0.0):.3f}")
+        # one layer's MoE alone on the forward's token count
+        p = {k: params["groups"][0][0][k][0]
+             for k in ("router", "w_gate", "w_up", "w_down")}
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        h = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda",
+                        dtype=p["w_gate"].dtype)
+        body = {"moe_dense": device_ms(
+                    lambda: moe.moe_dense(h, p, cfg), n=10),
+                "a2a, capacity 1.25": device_ms(
+                    lambda: moe.moe_forward(h, p, cfg, mesh), n=10),
+                "a2a, capacity 8.0": device_ms(
+                    lambda: moe.moe_forward(h, p, nodrop, mesh), n=10)}
+        T = B * S
+        k, E, F, D = (cfg.n_experts_per_tok, cfg.n_experts, cfg.moe_d_ff,
+                      cfg.d_model)
+        routed_ms = 1e3 * 3 * 2 * T * k * D * F / BF16_FLOPS
+        say(f"    one layer's MoE, {T} tokens, device ms: " + "; ".join(
+            f"{k_} {v:.3f}" for k_, v in body.items())
+            + f"; routed FLOPs at the bf16 peak {routed_ms:.3f}; a2a at "
+            f"1.25 / moe_dense {body['a2a, capacity 1.25'] / body['moe_dense']:.3f}")
+        del h
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        hl = torch.randn((1, DIST_LONG, D), generator=gen, device="cuda",
+                         dtype=p["w_gate"].dtype)
+        long_ms = device_ms(lambda: moe.moe_forward(hl, p, cfg, mesh), n=3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        say(f"    a2a body at 1 x {DIST_LONG} tokens (the 64K context), "
+            f"capacity {cfg.capacity_factor}: {long_ms:.3f} device ms, "
+            f"{peak:.2f} GiB peak above the model; "
+            f"{1e3 * long_ms / DIST_LONG:.3f} us a token")
+        del hl, p
+    # generate() under the mesh against mesh=None, f32, nothing dropped
+    params = _to_f32(params)
+    c32 = nodrop.replace(dtype="float32")
+    Bg, Sg, n_new = DIST_GEN
+    prompts = SyntheticLM(DataConfig(cfg.vocab_size, Sg, Bg, seed=4),
+                          "cuda").batch_at(0)["tokens"]
+    g_mesh = generate(params, c32, prompts, n_new, mesh=mesh).tokens
+    g_ref = generate(params, c32, prompts, n_new).tokens
+    same = torch.equal(g_mesh, g_ref)
+    say(f"    generate() f32, {Bg} x {Sg} prompts, {n_new} new: mesh == "
+        f"mesh=None {same}")
+    del params
+    torch.cuda.empty_cache()
+    checks = {
+        "logits finite": finite,
+        "forward under the mesh within 2e-2 at capacity 8":
+            out["rel8"] < BF16_TOL,
+        "loss_fn under the mesh within 2e-2 at capacity 8":
+            out["loss_rel"] < BF16_TOL,
+        "tokens dropped at capacity 1.25": tape.dropped > 0,
+        "generate under the mesh == mesh=None (f32)": same,
+    }
+    return [f"12a {k}" for k, ok in checks.items() if not ok]
+
+
+def dist_olmo(mesh):
+    """12b: olmo-1b at full width in f32 (phase 9a's batch 8 x 128): the
+    train step under the 1 x 1 mesh against the unmeshed step (losses,
+    through flash_attention under autograd), and the error-feedback step
+    (its reduction through compressed_psum's all-gather) against the
+    unmeshed EF step."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, TrainConfig, get_config
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.dist.compression import init_residuals
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_loop import make_ef_train_step, \
+        make_train_step
+    cfg = get_config("olmo-1b").replace(dtype="float32")
+    B, S, steps = DIST_OLMO
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=0), "cuda")
+    batches = [ds.batch_at(i) for i in range(steps)]
+    opt = AdamW(OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=8))
+    ef_cfg = TrainConfig(grad_compress="ef_int8")
+    losses = {}
+    for name, m, ef in (("unmeshed", None, False), ("mesh", mesh, False),
+                        ("EF unmeshed", None, True), ("EF mesh", mesh, True)):
+        params = init_params(0, cfg, "cuda")
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ls = []
+        if ef:
+            step = make_ef_train_step(cfg, opt, ef_cfg, m)
+            resid = init_residuals(params)
+            for b in batches:
+                params, state, resid, l = step(params, state, resid, b)
+                ls.append(float(l))
+            del resid
+        else:
+            step = make_train_step(cfg, opt, mesh=m)
+            for b in batches:
+                params, state, l = step(params, state, b)
+                ls.append(float(l))
+        losses[name] = ls
+        say(f"    12b {name}: losses {', '.join(f'{x:.6f}' for x in ls)} "
+            f"({(time.perf_counter() - t0) * 1e3 / steps:.1f} ms a step)")
+        del params, state
+        torch.cuda.empty_cache()
+
+    def close(a, b):
+        return all(abs(x - y) <= F32_TOL * abs(y) for x, y in zip(a, b))
+
+    say(f"  12b olmo-1b f32, batch {B} x {S}, {steps} steps: mesh == "
+        f"unmeshed bitwise {losses['mesh'] == losses['unmeshed']}, EF "
+        f"{losses['EF mesh'] == losses['EF unmeshed']}")
+    checks = {
+        "the mesh step's losses within 2e-5 of the unmeshed step's":
+            close(losses["mesh"], losses["unmeshed"]),
+        "the mesh EF step's losses within 2e-5 of the unmeshed EF step's":
+            close(losses["EF mesh"], losses["EF unmeshed"]),
+        "losses finite": all(math.isfinite(x) for v in losses.values()
+                             for x in v),
+    }
+    return [f"12b {k}" for k, ok in checks.items() if not ok]
+
+
+def dist_psum(mesh):
+    """12c: compressed_psum at world size 1 is dq8(q8(x)), bit for bit."""
+    import torch
+    from repro_torch.dist.compression import compressed_psum
+    from repro_torch.optim.adamw import dq8_rowwise, q8_rowwise
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((4096, 4096), generator=gen, device="cuda")
+    got = compressed_psum(x, mesh, ("data", "model"))
+    want = dq8_rowwise(*q8_rowwise(x))
+    same = torch.equal(got, want)
+    t = device_ms(lambda: compressed_psum(x, mesh, ("data", "model")), n=10)
+    say(f"  12c compressed_psum (4096 x 4096 f32) == dq8(q8(x)) {same}; "
+        f"{t:.3f} device ms")
+    return [] if same else ["12c compressed_psum != dq8(q8(x))"]
+
+
+def phase_dist():
+    """Phase 12: the distributed layer on the card at world size 1: an
+    NCCL process group (a FileStore under build/, no TCP port) and a 1 x 1
+    ("data", "model") mesh. Each part is driven with the counts set to 0
+    just before it and read just after. Returns the summed counts."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    say("== phase 12: the distributed layer (NCCL, world size 1, 1 x 1 "
+        "mesh)")
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(DIST_DIR, "store"), 1),
+        rank=0, world_size=1)
+    total = {"cur_matmul": 0, "flash_attention": 0, "paged_attention": 0}
+    failed = []
+    try:
+        mesh = make_local_mesh((1, 1), ("data", "model"), device="cuda")
+        say(f"  backend {dist.get_backend()}, mesh {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names}")
+        for name, part in (("12a", dist_mixtral), ("12b", dist_olmo),
+                           ("12c", dist_psum)):
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            failed += part(mesh)
+            torch.cuda.synchronize()
+            n = _counts()
+            for k, v in n.items():
+                total[k] += v
+            gc.collect()
+            torch.cuda.empty_cache()
+            say(f"  {name} launches {json.dumps(n)}, "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    say(f"  phase 12 launches {json.dumps(total)}, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise SystemExit(f"distributed checks failed: {failed}")
+    return total
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (all by default)")
     ap.add_argument("--cpu-progressive", nargs=2, metavar=("IN", "OUT"),
                     help="phase 10e's CPU run (started by phase 10)")
@@ -4194,23 +4506,26 @@ def main():
         plan_launches = phase_plan(run, ppl_uniform, stats_a, zoo_model)
     if 11 in phases:
         family_launches = phase_families()
+    if 12 in phases:
+        dist_launches = phase_dist()
     if 8 in phases and run is not None:
         phase_split(run, heal_case)
-    if phases != set(range(1, 12)):
+    if phases != set(range(1, 13)):
         say(f"ran phases {sorted(phases)} only: no kernel table")
         return 1
     # launches on the main paths: the last cure() run (its generate stage
     # included) with both perplexity passes (phase 6), phase 7's runs,
     # phase 9's training, healing and trained-weights runs, phase 10's
-    # planning parts and phase 11's families
+    # planning parts, phase 11's families and phase 12's meshed runs
     launches = {k: main_launches.get(k, 0) + serve_launches[k]
                 + train_launches[k] + plan_launches[k] + family_launches[k]
-                for k in serve_launches}
+                + dist_launches[k] for k in serve_launches}
     say(f"launches phase 6 {json.dumps(main_launches)}, phase 7 "
         f"{json.dumps(serve_launches)}, phase 9 "
         f"{json.dumps(train_launches)}, phase 10 "
         f"{json.dumps(plan_launches)}, phase 11 "
-        f"{json.dumps(family_launches)}")
+        f"{json.dumps(family_launches)}, phase 12 "
+        f"{json.dumps(dist_launches)}")
     meta = {
         "cur_matmul": ("src/repro_torch/csrc/cur_matmul.cu",
                        "src/repro/kernels/cur_matmul/cur_matmul.py:48"),

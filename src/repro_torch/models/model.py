@@ -51,6 +51,8 @@ def dense_init(gen, reps: int, m: int, n: int, dtype, device):
     """(reps, m, n) scaled truncated-normal (fan-in) weights, each drawn in
     f32 and cast, one repeat at a time (no full-size f32 temporary)."""
     out = torch.empty((reps, m, n), dtype=dtype, device=device)
+    if out.is_meta:                        # shapes only: nothing to draw
+        return out
     std = 1.0 / math.sqrt(m)
     tmp = torch.empty((m, n), dtype=torch.float32, device=device)
     for i in range(reps):
@@ -157,10 +159,14 @@ def init_block(gen, spec, cfg: ModelConfig, reps: int, device) -> Params:
 def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
     """Random params made on ``device`` from one ``torch.Generator`` seeded
     with ``seed``. The stream differs from ``jax.random``'s: tests that
-    compare with the JAX package bridge JAX's params instead."""
+    compare with the JAX package bridge JAX's params instead. On the
+    ``meta`` device the tree has the shapes and dtypes and draws nothing
+    (``repro_torch.launch.specs.param_specs``)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     dtype = torch_dtype(cfg.dtype)
     params: Params = {"groups": []}
     if cfg.input_mode == "tokens":
@@ -182,16 +188,16 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
 # forward
 # ---------------------------------------------------------------------------
 
-def channel_mix(x, p, spec, cfg):
+def channel_mix(x, p, spec, cfg, mesh=None):
     """x + the block's channel mixer (MLP, MoE, or none)."""
     if spec.mlp == MLP:
         x = x + mlp_forward(norm(x, p.get("norm2"), cfg), p, cfg)
     elif spec.mlp == MOE:
-        x = x + moe_forward(norm(x, p.get("norm2"), cfg), p, cfg)
+        x = x + moe_forward(norm(x, p.get("norm2"), cfg), p, cfg, mesh)
     return x
 
 
-def block_forward(x, p, spec, cfg, positions):
+def block_forward(x, p, spec, cfg, positions, mesh=None):
     h = norm(x, p.get("norm1"), cfg)
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
@@ -200,7 +206,7 @@ def block_forward(x, p, spec, cfg, positions):
         a = mb.mamba_forward(h, p, cfg)
     else:
         raise ValueError(spec.mixer)
-    return channel_mix(x + a, p, spec, cfg)
+    return channel_mix(x + a, p, spec, cfg, mesh)
 
 
 def _embed(params, cfg, batch):
@@ -247,23 +253,25 @@ def iter_layer_params(params, cfg):
                 li += 1
 
 
-def apply_groups(x, params, cfg, positions):
+def apply_groups(x, params, cfg, positions, mesh=None):
     """Run all layer groups over x."""
     for _, spec, lp in iter_layer_params(params, cfg):
-        x = block_forward(x, lp, spec, cfg, positions)
+        x = block_forward(x, lp, spec, cfg, positions, mesh)
     return x
 
 
-def forward(params, cfg: ModelConfig, batch):
-    """Full-sequence forward -> logits (B, S, V)."""
+def forward(params, cfg: ModelConfig, batch, mesh=None):
+    """Full-sequence forward -> logits (B, S, V). Under a ``mesh`` every
+    rank passes the same global batch and gets the global logits (the MoE
+    layers run their distributed bodies over the mesh)."""
     x = _embed(params, cfg, batch)
     positions = _positions(x)
-    x = apply_groups(x, params, cfg, positions)
+    x = apply_groups(x, params, cfg, positions, mesh)
     x = norm(x, params.get("final_norm"), cfg)
     return _unembed(params, cfg, x)
 
 
-def forward_hidden(params, cfg: ModelConfig, batch):
+def forward_hidden(params, cfg: ModelConfig, batch, mesh=None):
     """Forward that also returns every block's output hidden state.
     Returns (logits, hidden) with hidden (L+1, B, S, D): the embedding
     output followed by each block's output."""
@@ -271,17 +279,17 @@ def forward_hidden(params, cfg: ModelConfig, batch):
     positions = _positions(x)
     collected = [x]
     for _, spec, lp in iter_layer_params(params, cfg):
-        x = block_forward(x, lp, spec, cfg, positions)
+        x = block_forward(x, lp, spec, cfg, positions, mesh)
         collected.append(x)
     hidden = torch.stack(collected)
     x = norm(x, params.get("final_norm"), cfg)
     return _unembed(params, cfg, x), hidden
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, mesh=None):
     """Mean next-token cross-entropy (masked mean when ``batch`` has a
     ``mask``)."""
-    logits = forward(params, cfg, batch).float()
+    logits = forward(params, cfg, batch, mesh).float()
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -323,7 +331,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return cache
 
 
-def _block_prefill(x, p, c, spec, cfg, positions):
+def _block_prefill(x, p, c, spec, cfg, positions, mesh=None):
     h = norm(x, p.get("norm1"), cfg)
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
@@ -332,10 +340,10 @@ def _block_prefill(x, p, c, spec, cfg, positions):
         a, c = mb.mamba_prefill(h, p, cfg, c)
     else:
         raise ValueError(spec.mixer)
-    return channel_mix(x + a, p, spec, cfg), c
+    return channel_mix(x + a, p, spec, cfg, mesh), c
 
 
-def _block_decode(x, p, c, spec, cfg, pos):
+def _block_decode(x, p, c, spec, cfg, pos, mesh=None):
     h = norm(x, p.get("norm1"), cfg)
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
@@ -344,10 +352,10 @@ def _block_decode(x, p, c, spec, cfg, pos):
         a, c = mb.mamba_decode(h, p, cfg, c)
     else:
         raise ValueError(spec.mixer)
-    return channel_mix(x + a, p, spec, cfg), c
+    return channel_mix(x + a, p, spec, cfg, mesh), c
 
 
-def _apply_groups_cached(x, params, cache, cfg, block_fn):
+def _apply_groups_cached(x, params, cache, cfg, block_fn, mesh=None):
     """The prefill/decode layer loop: a Python loop over every group's
     repeats (the JAX package's ``lax.scan``), each layer's params and
     cache taken as views of the stacked leaves, so ``block_fn``'s in-place
@@ -358,33 +366,33 @@ def _apply_groups_cached(x, params, cache, cfg, block_fn):
             for pi, spec in enumerate(pattern):
                 lp = tree_map(lambda a, r=r: a[r], gp[pi])
                 lc = tree_map(lambda a, r=r: a[r], gc[pi])
-                x, _ = block_fn(x, lp, lc, spec, cfg)
+                x, _ = block_fn(x, lp, lc, spec, cfg, mesh)
     return x, cache
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, batch, cache):
+def prefill(params, cfg: ModelConfig, batch, cache, mesh=None):
     """Process the prompt; returns (last-position logits (B, V), cache)."""
     x = _embed(params, cfg, batch)
     positions = _positions(x)
 
-    def block_fn(xc, p, c, spec, cfg):
-        return _block_prefill(xc, p, c, spec, cfg, positions)
+    def block_fn(xc, p, c, spec, cfg, mesh):
+        return _block_prefill(xc, p, c, spec, cfg, positions, mesh)
 
-    x, cache = _apply_groups_cached(x, params, cache, cfg, block_fn)
+    x, cache = _apply_groups_cached(x, params, cache, cfg, block_fn, mesh)
     x = norm(x, params.get("final_norm"), cfg)
     return _unembed(params, cfg, x[:, -1:, :])[:, 0, :], cache
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, batch, cache, pos):
+def decode_step(params, cfg: ModelConfig, batch, cache, pos, mesh=None):
     """One decode step. batch: tokens (B, 1); pos (B, 1) absolute
     positions. Returns (logits (B, V), cache)."""
     x = _embed(params, cfg, batch)
 
-    def block_fn(xc, p, c, spec, cfg):
-        return _block_decode(xc, p, c, spec, cfg, pos)
+    def block_fn(xc, p, c, spec, cfg, mesh):
+        return _block_decode(xc, p, c, spec, cfg, pos, mesh)
 
-    x, cache = _apply_groups_cached(x, params, cache, cfg, block_fn)
+    x, cache = _apply_groups_cached(x, params, cache, cfg, block_fn, mesh)
     x = norm(x, params.get("final_norm"), cfg)
     return _unembed(params, cfg, x)[:, 0, :], cache

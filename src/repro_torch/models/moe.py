@@ -1,19 +1,44 @@
-"""Mixture-of-Experts channel mixer (``repro.models.moe`` on one device).
+"""Mixture-of-Experts channel mixer (``repro.models.moe``).
 
-The JAX package dispatches on ``cfg.moe_impl`` and the mesh: with no mesh
-it always runs ``moe_dense``, whatever ``moe_impl`` says. The port has no
-mesh, so :func:`moe_forward` is :func:`moe_dense`: every expert applied to
-every token, the top-k outputs gathered and weighted by the renormalized
-gates. That costs E / k times the routed FLOPs (the JAX oracle's cost).
-The expert-parallel and expert-TP bodies run only under ``shard_map``;
-they come with the distributed slice.
+Three implementations, selected by ``cfg.moe_impl`` and the mesh, as in
+the JAX package:
+
+  - ``dense`` (and any call without a mesh): every expert applied to
+    every token, the top-k outputs gathered and weighted by the
+    renormalized gates. That costs E / k times the routed FLOPs; it is the
+    oracle the distributed paths are held to.
+
+  - ``a2a`` with E % model == 0 and the sequence divisible by the model
+    axis: expert parallelism. Tokens are sequence-sharded over 'model',
+    sorted by destination expert, packed into fixed-capacity per-rank
+    buffers, exchanged with an all-to-all, processed by the local expert
+    slice as batched GEMMs over only the routed tokens, and returned by a
+    second all-to-all. Capacity overflow tokens are dropped (GShard
+    semantics); the residual connection carries them.
+
+  - ``a2a`` otherwise (E < model, or decode's S == 1): expert-TP. Every
+    rank routes all its tokens with all experts, the intermediate dim F
+    sliced over 'model'; dispatch is local (sort + capacity buffer), the
+    outputs are summed over 'model'.
+
+The JAX package runs the two bodies under ``shard_map``; the port keeps
+its contract explicitly (``repro_torch.dist.collectives``): each rank
+takes its block of ``x`` per JAX's ``x_spec``, slices the (replicated)
+expert weights to its experts or its F columns, runs the body with the
+'model' group's collectives, and all-gathers the global (B, S, D). The
+collectives carry gradients, so a train step runs through the bodies.
 
 Routing: softmax-then-top-k with renormalized gates (Mixtral convention).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.bridge import tree_map
+from repro_torch.dist import collectives as col
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import act_fn
 from repro_torch.models.mlp import mlp_forward
 
@@ -70,6 +95,174 @@ def moe_dense(x, p, cfg):
     return out.reshape(B, S, D)
 
 
-def moe_forward(x, p, cfg):
-    """x (B, S, D) -> (B, S, D). One device: the dense path."""
-    return moe_dense(x, p, cfg)
+# ---------------------------------------------------------------------------
+# distributed paths (the shard_map bodies)
+# ---------------------------------------------------------------------------
+
+def _rank_within_expert(fe):
+    """For each assignment, its occurrence rank within its expert id (in
+    assignment order). O(A log A): a stable sort, then each run's start by
+    a running max, as JAX's ``associative_scan(maximum)``."""
+    A = fe.shape[0]
+    order = torch.sort(fe, stable=True).indices
+    fe_s = fe[order]
+    idx = torch.arange(A, device=fe.device)
+    is_start = torch.ones(A, dtype=torch.bool, device=fe.device)
+    is_start[1:] = fe_s[1:] != fe_s[:-1]
+    start_pos = torch.cummax(torch.where(is_start, idx, -1), dim=0).values
+    rank = torch.empty(A, dtype=torch.int32, device=fe.device)
+    rank[order] = (idx - start_pos).to(torch.int32)
+    return rank
+
+
+def _expert_mm(h, w):
+    """Batched expert matmul supporting CUR-factorized expert weights.
+    h (E, C, D); w dense (E, D, F) or {"C","U0","dU","R"} / {"CU","R"}
+    stacks."""
+    if isinstance(w, dict) and ("C" in w or "CU" in w):
+        if "CU" in w:
+            t = torch.matmul(h, w["CU"].to(h.dtype))
+        else:
+            u = (w["U0"] + w["dU"]).to(h.dtype)
+            t = torch.matmul(torch.matmul(h, w["C"].to(h.dtype)), u)
+        return torch.matmul(t, w["R"].to(h.dtype))
+    return torch.matmul(h, w)
+
+
+def _expert_ffn(h, wg, wu, wd, act):
+    """h (E, C, D) x weights (E, D, F) / (E, F, D) -> (E, C, D)."""
+    g = act(_expert_mm(h, wg))
+    u = _expert_mm(h, wu)
+    return torch.matmul(g * u, wd)
+
+
+def _assignments(xs, router, cfg):
+    """Routing of xs (B, S, D)'s T tokens: (xt (T, D), experts fe (A,),
+    gates fg (A,), token ft (A,), rank within expert (A,), capE) for the
+    A = T * k assignments, token-major."""
+    k = cfg.n_experts_per_tok
+    T = xs.shape[0] * xs.shape[1]
+    xt = xs.reshape(T, xs.shape[-1])
+    gates, experts = route(xt, router, k)
+    fe = experts.reshape(-1)
+    ft = torch.arange(T, device=xs.device).repeat_interleave(k)
+    capE = max(1, math.ceil(T * k * cfg.capacity_factor / cfg.n_experts))
+    return xt, fe, gates.reshape(-1), ft, _rank_within_expert(fe), capE
+
+
+def _combine(y_a, keep, fg, ft, T):
+    """Sum of the kept assignments' outputs, gate-weighted, per token
+    (``segment_sum``)."""
+    y_a = torch.where(keep[:, None], y_a, torch.zeros_like(y_a))
+    y_a = y_a * fg[:, None].to(y_a.dtype)
+    return torch.zeros((T, y_a.shape[-1]), dtype=y_a.dtype,
+                       device=y_a.device).index_add(0, ft, y_a)
+
+
+def _moe_body_a2a(xs, router, wg, wu, wd, *, cfg, n, mesh):
+    """Expert-parallel body. xs (B, S_loc, D); wg/wu/wd (E_loc, D, F) /
+    (E_loc, F, D); all-to-alls over 'model' (n ranks)."""
+    E_loc = cfg.n_experts // n
+    B, S, D = xs.shape
+    xt, fe, fg, ft, rank, capE = _assignments(xs, router, cfg)
+    capB = E_loc * capE
+    dst = fe // E_loc
+    slot = (fe % E_loc) * capE + rank
+    keep = rank < capE
+    slot_eff = torch.where(keep, slot, capB)          # capB: the drop row
+    send = torch.zeros((n, capB + 1, D), dtype=xs.dtype, device=xs.device)
+    send = send.index_put((dst, slot_eff), xt[ft])[:, :capB]
+    recv = col.all_to_all(send.reshape(n * capB, D), mesh, "model")
+    # slot layout per source: (E_loc, capE); regroup by local expert
+    h = recv.reshape(n, E_loc, capE, D).transpose(0, 1)
+    h = h.reshape(E_loc, n * capE, D)
+    y = _expert_ffn(h, wg, wu, wd, act_fn(cfg.mlp_act))
+    back = y.reshape(E_loc, n, capE, D).transpose(0, 1)
+    ret = col.all_to_all(back.reshape(n * capB, D), mesh, "model")
+    y_a = ret.reshape(n, capB, D)[dst, slot_eff.clamp(0, capB - 1)]
+    return _combine(y_a, keep, fg, ft, B * S).reshape(B, S, D)
+
+
+def _moe_body_tp(xs, router, wg, wu, wd, *, cfg, mesh):
+    """Expert-TP body (E < model axis). xs (B, S, D) replicated over
+    'model'; wg/wu (E, D, F_loc), wd (E, F_loc, D). The output is summed
+    over 'model'."""
+    E = cfg.n_experts
+    B, S, D = xs.shape
+    xt, fe, fg, ft, rank, capE = _assignments(xs, router, cfg)
+    keep = rank < capE
+    slot_eff = torch.where(keep, rank, capE)
+    buf = torch.zeros((E, capE + 1, D), dtype=xs.dtype, device=xs.device)
+    buf = buf.index_put((fe, slot_eff), xt[ft])[:, :capE]
+    y = _expert_ffn(buf, wg, wu, wd, act_fn(cfg.mlp_act))  # partial over F
+    y_a = y[fe, slot_eff.clamp(0, capE - 1)]
+    out = _combine(y_a, keep, fg, ft, B * S)
+    return col.reduce_from(out, mesh, "model").reshape(B, S, D)
+
+
+def _slice(w, dim, mesh, b_ax):
+    """This rank's block of a replicated weight (tree) along ``dim`` over
+    'model'. Its gradient is summed over the batch axes ``b_ax`` (whose
+    ranks route other rows) and all-gathered over 'model' back to the
+    full weight."""
+    return tree_map(lambda a: col.scatter(col.copy_to(a, mesh, b_ax), dim,
+                                          mesh, "model"), w)
+
+
+def _x_spec(shape, cfg, mesh):
+    """shard_map's spec of x (B, S, D) on ``mesh``: (per-dim axes of B and
+    S, whether the a2a body runs, the batch axes ``b_ax``)."""
+    n = axis_sizes(mesh)["model"]
+    dp = col.dp_axes(mesh)
+    dp_size = col.axes_size(mesh, dp)
+    B, S = shape[:2]
+    # small/indivisible batches (long-context B=1) replicate over 'data'
+    b_ax = dp if (B % dp_size == 0 and B >= dp_size) else ()
+    # a2a needs the sequence dim divisible by the model axis (it shards
+    # tokens over 'model'); decode steps (S == 1) use the TP body instead
+    fsdp_layout = getattr(cfg, "layout", "tp") == "fsdp"
+    if cfg.n_experts % n == 0 and (S % n == 0 or fsdp_layout):
+        if fsdp_layout and b_ax and B % (dp_size * n) == 0 \
+                and B >= dp_size * n:
+            # batch already spans (data, model): tokens arrive fully split
+            return (dp + ("model",), ()), True, b_ax
+        return (b_ax, "model"), True, b_ax
+    return (b_ax, ()), False, b_ax
+
+
+def moe_forward(x, p, cfg, mesh=None):
+    """Dispatch on impl + mesh. x (B, S, D) -> (B, S, D), the same global
+    tensor on every rank of ``mesh`` (a DeviceMesh with a 'model' axis
+    and, optionally, 'data' / 'pod' batch axes)."""
+    if cfg.moe_impl == "dense" or mesh is None:
+        return moe_dense(x, p, cfg)
+    x_spec, a2a, b_ax = _x_spec(x.shape, cfg, mesh)
+    # the router's gradient is partial on every rank (each routes its own
+    # tokens, or its F columns' share of the gates' gradient)
+    router = col.copy_to(p["router"], mesh, b_ax + ("model",))
+    if a2a:
+        n = axis_sizes(mesh)["model"]
+        w = [_slice(p[k], 0, mesh, b_ax)
+             for k in ("w_gate", "w_up", "w_down")]
+
+        def body(xs):
+            return _moe_body_a2a(xs, router, *w, cfg=cfg, n=n, mesh=mesh)
+    else:
+        w = [_slice(p["w_gate"], 2, mesh, b_ax),
+             _slice(p["w_up"], 2, mesh, b_ax),
+             _slice(p["w_down"], 1, mesh, b_ax)]
+
+        def body(xs):
+            xs = col.copy_to(xs, mesh, "model")
+            return _moe_body_tp(xs, router, *w, cfg=cfg, mesh=mesh)
+    xs = x
+    for d, axes in enumerate(x_spec):
+        if axes:
+            xs = col.scatter(xs, d, mesh, axes)
+    out = body(xs)
+    for d, axes in enumerate(x_spec):
+        if axes:
+            out = col.gather(out, d, mesh, axes)
+    if cfg.n_shared_experts:
+        out = out + mlp_forward(x, p["shared"], cfg)
+    return out

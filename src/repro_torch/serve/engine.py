@@ -3,8 +3,10 @@ model (``models.model.prefill`` / ``decode_step``), with the batching and
 termination logic a server needs (static max_len, per-sequence EOS).
 
 The JAX package jit-compiles its two step functions and caches them per
-config; the port has no jit, so ``make_prefill`` / ``make_serve_step``
-return the plain closures.
+(config, mesh); the port has no jit, so ``make_prefill`` /
+``make_serve_step`` return the plain closures. Under a ``mesh`` every
+rank passes the same prompts and gets the same tokens (the MoE layers run
+their distributed bodies; decode's S == 1 takes the expert-TP body).
 """
 from __future__ import annotations
 
@@ -17,19 +19,19 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import decode_step, init_cache, prefill
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None):
     """Decode step: (params, cache, batch {tokens (B,1)}, pos (B,1)) ->
     (logits (B,V), cache)."""
 
     def serve_step(params, cache, batch, pos):
-        return decode_step(params, cfg, batch, cache, pos)
+        return decode_step(params, cfg, batch, cache, pos, mesh)
 
     return serve_step
 
 
-def make_prefill(cfg: ModelConfig):
+def make_prefill(cfg: ModelConfig, mesh=None):
     def prefill_fn(params, cache, batch):
-        return prefill(params, cfg, batch, cache)
+        return prefill(params, cfg, batch, cache, mesh)
 
     return prefill_fn
 
@@ -42,7 +44,7 @@ class GenerationResult:
 
 @torch.no_grad()
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, n_new: int,
-             *, temperature: float = 0.0, seed: int = 0,
+             *, temperature: float = 0.0, seed: int = 0, mesh=None,
              eos_id: Optional[int] = None) -> GenerationResult:
     """Greedy/temperature sampling for a batch of same-length prompts.
 
@@ -58,7 +60,8 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, n_new: int,
     dev = prompts.device
     B, S = prompts.shape
     cache = init_cache(cfg, B, S + n_new, dev)
-    logits, cache = prefill(params, cfg, {"tokens": prompts}, cache)
+    pf, st = make_prefill(cfg, mesh), make_serve_step(cfg, mesh)
+    logits, cache = pf(params, cache, {"tokens": prompts})
     gen = None
     if temperature > 0:
         gen = torch.Generator(device=dev)
@@ -86,7 +89,6 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, n_new: int,
                 break           # all retired: stop burning decode steps
         if t + 1 < n_new:
             pos = torch.full((B, 1), S + t, dtype=torch.int32, device=dev)
-            logits, cache = decode_step(params, cfg,
-                                        {"tokens": nxt[:, None]}, cache, pos)
+            logits, cache = st(params, cache, {"tokens": nxt[:, None]}, pos)
     return GenerationResult(tokens=torch.stack(toks, dim=1),
                             logprobs=torch.stack(lps, dim=1))

@@ -1,5 +1,5 @@
 """Evaluation helpers: perplexity over held-out batches, and token
-accuracy."""
+accuracy (under a ``mesh``, every rank passes the same batches)."""
 from __future__ import annotations
 
 import math
@@ -10,19 +10,19 @@ from repro_torch.models.model import forward, loss_fn
 
 
 @torch.no_grad()
-def perplexity(params, cfg, batches) -> float:
+def perplexity(params, cfg, batches, mesh=None) -> float:
     tot, n = 0.0, 0
     for b in batches:
-        tot += float(loss_fn(params, cfg, b))
+        tot += float(loss_fn(params, cfg, b, mesh))
         n += 1
     return math.exp(tot / max(n, 1))
 
 
 @torch.no_grad()
-def token_accuracy(params, cfg, batches) -> float:
+def token_accuracy(params, cfg, batches, mesh=None) -> float:
     correct, total = 0, 0
     for b in batches:
-        pred = torch.argmax(forward(params, cfg, b), dim=-1)
+        pred = torch.argmax(forward(params, cfg, b, mesh), dim=-1)
         ok = pred == b["labels"]
         mask = b.get("mask")
         if mask is not None:

@@ -44,7 +44,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "core.heal", "core.peft", "zoo", "launch.train",
                  "kernels.flash_attention.backward", "plan.sensitivity",
                  "plan.allocate", "plan.progressive", "roofline.analysis",
-                 "launch.plan"):
+                 "launch.plan", "dist.sharding", "dist.elastic",
+                 "dist.collectives", "launch.mesh", "launch.specs"):
         assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
