@@ -200,14 +200,31 @@ nonzero:
               step and EF step (compressed_psum's all-gather) against the
               unmeshed ones (losses within 2e-5; bitwise printed); (c)
               compressed_psum == dq8(q8(x)) bit for bit
+ 13. placed   (after 12, before 8) sharded training at world size 1 (an
+              NCCL group on phase 12's FileStore, a 1 x 1 mesh): (a)
+              olmo-1b uncut in f32 at phase 9a's batch (8 x 128) and a
+              masked, ragged copy of it: 2 steps of the placed step (the
+              params and moments placed by the caller) against the
+              unmeshed step and the replicated-input meshed step, plain
+              and EF (losses within 2e-5, step ms); (b) remat off /
+              "full" / "save_mixer_outputs" on the placed step at 4 x
+              2048 tokens: loss and every gradient equal across the three
+              (2e-5), peak memory (max_memory_allocated) of the gradient
+              pass and of a whole step, step ms, flash_attention launches
+              (a recomputed forward launches the kernel again); (c)
+              restore(shardings=) of 13a's placed params equals
+              restore(device="cuda") bit for bit; (d) olmo-1b with 4
+              layers' wq, wk and w_gate CURed (folded): the placed
+              forward against the unplaced one in bf16 and f32, under
+              no_grad and in grad mode, cur_matmul once a folded weight
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernel table.
 ``--phases 1,2,3`` runs only the phases named (for a first check of a new
 kernel; phase 9 without 6 makes llama3.1-8b's weights itself, phase 10
 needs 6 and trains its REPRO model without 9, phase 11 needs none of the
-others: ``--phases 1,2,11``, nor does 12: ``--phases 1,2,12``); the
-kernel table and the last line need every phase.
+others: ``--phases 1,2,11``, nor do 12 and 13: ``--phases 1,2,12,13``);
+the kernel table and the last line need every phase.
 """
 import argparse
 import gc
@@ -231,7 +248,7 @@ CUR_SHAPES = {"wq": (4096, 256, 4096), "wk": (4096, 256, 1024),
               "w_gate": (4096, 256, 14336)}   # (m, r, n) at r_max 256
 CUR_M = 2048                                  # 4 x 512 tokens
 FLASH_SHAPE = (4, 32, 8, 512, 128)            # B, H, K, S, d
-CURE_RUNS = 3                                 # 1 cold + 2 warm cure() runs
+CURE_RUNS = 2                                 # 1 cold + 1 warm cure() run
 ENGINE_SHAPE = (8, 512, 64)                   # B, prompt, new (legacy engine)
 ENGINE_CHECK_STEPS = (1, 16, 63)              # decode steps held to forward()
 # cure()'s save stage (git-ignored; deleted at phase 6's end)
@@ -2250,6 +2267,16 @@ def phase_train(run):
     return total, kept.get("9b"), kept.get("9c")
 
 
+def _flash_per_step(cfg):
+    """flash_attention launches of one training step: one a layer, and
+    one more where remat recomputes the layer's body in the backward
+    (``cfg.remat`` on a scanned group of several repeats, or
+    ``static_loops``)."""
+    remat = cfg.remat and any((cfg.scan_layers and reps > 1)
+                              or cfg.static_loops for _, reps in cfg.groups)
+    return cfg.n_layers * (2 if remat else 1)
+
+
 def train_olmo():
     """9a: olmo-1b at full width (random weights, bf16), eight steps of the
     train CLI's path (``launch.train.run``) at batch 8 x 128 tokens, the
@@ -2281,7 +2308,8 @@ def train_olmo():
     say(f"    peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB ({base:.2f} GiB held before, phase 6's model); "
         f"flash_attention launches {fa.launches} "
-        f"({fa.launches / args.steps:g} per step)")
+        f"({fa.launches / args.steps:g} per step; remat "
+        f"{cfg.remat_policy if cfg.remat else 'off'})")
     # every weight moved: against a fresh init from the same seed, leaf by
     # leaf and layer by layer
     init = init_params(0, cfg, "cuda")
@@ -2294,8 +2322,9 @@ def train_olmo():
     checks = {
         "every loss finite": all(math.isfinite(x) for x in tr.losses),
         "every weight moved": not same,
-        "flash_attention 16 per step":
-            fa.launches == cfg.n_layers * args.steps,
+        "flash_attention 16 per step (32 under remat: each layer's "
+        "forward again in the backward)":
+            fa.launches == _flash_per_step(cfg) * args.steps,
         "Adam step count 8": int(tr.opt_state["step"]) == args.steps,
     }
     return [f"9a: {k}" for k, ok in checks.items()
@@ -4220,6 +4249,8 @@ def dist_mixtral(mesh):
     from repro_torch.configs import CURConfig, get_config
     from repro_torch.core import calibrate, compress_model
     from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.dist.sharding import (
+        Placed, drop_lead, map_specs, param_pspecs)
     from repro_torch.models import forward, init_params, loss_fn
     from repro_torch.models import moe
     from repro_torch.serve import generate
@@ -4286,18 +4317,21 @@ def dist_mixtral(mesh):
                 f"{kind.get('cur_matmul kernels', 0.0):.3f}, "
                 f"flash_attention kernels "
                 f"{kind.get('flash_attention kernels', 0.0):.3f}")
-        # one layer's MoE alone on the forward's token count
+        # one layer's MoE alone on the forward's token count (its
+        # placement on the 1 x 1 mesh is the whole of each leaf)
         p = {k: params["groups"][0][0][k][0]
              for k in ("router", "w_gate", "w_up", "w_down")}
+        lay = Placed(mesh, map_specs(drop_lead, param_pspecs(
+            params, cfg, mesh)["groups"][0][0]))
         gen = torch.Generator(device="cuda").manual_seed(1)
         h = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda",
                         dtype=p["w_gate"].dtype)
         body = {"moe_dense": device_ms(
                     lambda: moe.moe_dense(h, p, cfg), n=10),
                 "a2a, capacity 1.25": device_ms(
-                    lambda: moe.moe_forward(h, p, cfg, mesh), n=10),
+                    lambda: moe.moe_forward(h, p, cfg, lay), n=10),
                 "a2a, capacity 8.0": device_ms(
-                    lambda: moe.moe_forward(h, p, nodrop, mesh), n=10)}
+                    lambda: moe.moe_forward(h, p, nodrop, lay), n=10)}
         T = B * S
         k, E, F, D = (cfg.n_experts_per_tok, cfg.n_experts, cfg.moe_d_ff,
                       cfg.d_model)
@@ -4312,7 +4346,7 @@ def dist_mixtral(mesh):
         base = torch.cuda.memory_allocated()
         hl = torch.randn((1, DIST_LONG, D), generator=gen, device="cuda",
                          dtype=p["w_gate"].dtype)
-        long_ms = device_ms(lambda: moe.moe_forward(hl, p, cfg, mesh), n=3)
+        long_ms = device_ms(lambda: moe.moe_forward(hl, p, cfg, lay), n=3)
         peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         say(f"    a2a body at 1 x {DIST_LONG} tokens (the 64K context), "
             f"capacity {cfg.capacity_factor}: {long_ms:.3f} device ms, "
@@ -4470,10 +4504,379 @@ def phase_dist():
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: sharded training at world size 1 (placed params, remat, restore)
+# ---------------------------------------------------------------------------
+
+PLACED_OLMO = (8, 128, 2)                     # 13a: phase 9a's B, S; steps
+CURED_OLMO = (4, 512, 4)                      # 13d: B, S, layers CURed
+REMAT_TOKENS = (4, 2048)                      # 13b's batch
+REMAT_STEPS = 2                               # step ms: the second step's
+REMAT_POLICIES = ("off", "full", "save_mixer_outputs")
+
+
+def _olmo_f32():
+    from repro_torch.configs import get_config
+    return get_config("olmo-1b").replace(dtype="float32")
+
+
+def _ragged_mask(B, S, seed):
+    """Row i keeps its first L_i tokens (row 0 none), on the card."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, S + 1, (B,), generator=gen)
+    lens[0] = 0
+    return (torch.arange(S)[None] < lens[:, None]).float().cuda()
+
+
+def placed_olmo(mesh):
+    """13a: the placed step against the unmeshed step and the
+    replicated-input meshed step (olmo-1b f32, phase 9a's batch, unmasked
+    and masked ragged), plain and EF. The initial params wait on the host, so only one run's
+    trees are on the card at a time (beside the earlier phases' models).
+    Returns (failures, the last placed run's params, specs)."""
+    import torch
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import OptimizerConfig, TrainConfig
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.dist.compression import init_residuals
+    from repro_torch.dist.sharding import Placed, param_pspecs, place
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_loop import make_ef_train_step, \
+        make_train_step
+    cfg = _olmo_f32()
+    B, S, steps = PLACED_OLMO
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=0), "cuda")
+    plain = [ds.batch_at(i) for i in range(steps)]
+    mask = _ragged_mask(B, S, 3)
+    kinds = {"unmasked": plain,
+             "masked, ragged": [dict(b, mask=mask) for b in plain]}
+    opt = AdamW(OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=8))
+    ef_cfg = TrainConfig(grad_compress="ef_int8")
+    base = init_params(0, cfg, "cuda")
+    specs = param_pspecs(base, cfg, mesh)
+    base = tree_map(lambda t: t.cpu(), base)
+    say(f"  13a olmo-1b f32, batch {B} x {S}, {steps} steps (masked: "
+        f"{int(mask.sum())} of {B * S} tokens, row 0 none); remat "
+        f"{cfg.remat_policy if cfg.remat else 'off'}")
+    losses = {}
+    for kind, batches in kinds.items():
+        for ef in (False, True):
+            # the one-device step (EF: ef_compress_grads) is the
+            # independent reference; the replicated-input meshed step
+            # places its params on entry and runs the placed code
+            runs = [("unmeshed", None), ("replicated mesh", mesh),
+                    ("placed", "placed")]
+            for name, m in runs:
+                params = tree_map(lambda t: t.cuda(), base)
+                if m == "placed":
+                    params, m = place(params, specs, mesh), Placed(mesh,
+                                                                   specs)
+                state = opt.init(params)
+                resid = init_residuals(params) if ef else None
+                step = (make_ef_train_step(cfg, opt, ef_cfg, m) if ef
+                        else make_train_step(cfg, opt, mesh=m))
+                ls, ms = [], []
+                for b in batches:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if ef:
+                        params, state, resid, l = step(params, state, resid,
+                                                       b)
+                    else:
+                        params, state, l = step(params, state, b)
+                    ls.append(float(l))
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                losses[(kind, ef, name)] = ls
+                say(f"    {kind}{', EF' if ef else ''}, {name}: losses "
+                    f"{', '.join(f'{x:.6f}' for x in ls)}; step ms "
+                    f"{', '.join(f'{x:.1f}' for x in ms)}")
+                if (kind, ef, name) == ("masked, ragged", True, "placed"):
+                    kept = params               # the last run: for 13c
+                del params, state, resid
+                torch.cuda.empty_cache()
+    del base
+
+    def close(a, b):
+        return all(abs(x - y) <= F32_TOL * abs(y) for x, y in zip(a, b))
+
+    checks = {}
+    for kind in kinds:
+        for ef in (False, True):
+            got = losses[(kind, ef, "placed")]
+            for ref in ("replicated mesh", "unmeshed"):
+                want = losses.get((kind, ef, ref))
+                if want is None:
+                    continue
+                label = f"{kind}{' EF' if ef else ''} placed vs {ref}"
+                say(f"    {label}: bitwise {got == want}")
+                checks[f"{label} within 2e-5"] = close(got, want)
+    checks["losses finite"] = all(math.isfinite(x) for v in losses.values()
+                                  for x in v)
+    return [f"13a {k}" for k, ok in checks.items() if not ok], kept, specs
+
+
+def remat_olmo(mesh):
+    """13b: remat off / full / save_mixer_outputs on the placed step at 4
+    x 2048 tokens: equal loss and gradients, peak memory, step ms."""
+    import torch
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.dist import tree_flatten
+    from repro_torch.dist.sharding import Placed, param_pspecs, place
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_loop import make_grads_fn, make_train_step
+    cfg = _olmo_f32()
+    B, S = REMAT_TOKENS
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=5), "cuda")
+    batches = [ds.batch_at(i) for i in range(REMAT_STEPS)]
+    params = init_params(0, cfg, "cuda")
+    specs = param_pspecs(params, cfg, mesh)
+    params = place(params, specs, mesh)
+    lay = Placed(mesh, specs)
+    gib = 2 ** 30
+    opt = AdamW(OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=8))
+
+    def of(policy):
+        return cfg.replace(remat=policy != "off",
+                           remat_policy="full" if policy == "off"
+                           else policy)
+
+    say(f"  13b olmo-1b f32, placed, batch {B} x {S}: "
+        f"{sum(t.numel() for t in tree_flatten(params))} parameters, "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB held")
+    ref, out = None, {}
+    for policy in REMAT_POLICIES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        f0 = fa.launches
+        t0 = time.perf_counter()
+        l, g = make_grads_fn(of(policy), mesh=lay)(params, batches[0])
+        l = float(l)
+        grads_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        g = tree_flatten(g)
+        if ref is None:
+            ref, rel = (l, g), 0.0
+        else:
+            rel = max(rel_err(a, b) for a, b in zip(g, ref[1]))
+        out[policy] = {"loss": l, "grad_rel": rel,
+                       "grads_peak": peak / gib,
+                       "grads_above": (peak - held) / gib,
+                       "grads_ms": grads_ms,
+                       "flash": fa.launches - f0}
+        del g
+    del ref
+    for policy in REMAT_POLICIES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        state = opt.init(params)
+        step = make_train_step(of(policy), opt, mesh=lay)
+        torch.cuda.reset_peak_memory_stats()
+        p, ms = params, []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, state, l = step(p, state, b)
+            float(l)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out[policy]["step_peak"] = torch.cuda.max_memory_allocated() / gib
+        out[policy]["step_ms"] = ms
+        del p, state
+    del params
+    torch.cuda.empty_cache()
+    for policy, r in out.items():
+        say(f"    remat {policy}: loss {r['loss']:.6f}, gradients' max "
+            f"scaled error vs off {r['grad_rel']:.3e}; gradient pass "
+            f"{r['grads_ms']:.1f} ms, peak {r['grads_peak']:.2f} GiB "
+            f"({r['grads_above']:.2f} above the params held), "
+            f"flash_attention launches {r['flash']}; step ms "
+            f"{', '.join(f'{x:.1f}' for x in r['step_ms'])}, step peak "
+            f"{r['step_peak']:.2f} GiB")
+    off = out["off"]
+    checks = {"losses finite": all(math.isfinite(r["loss"])
+                                   for r in out.values())}
+    for policy in REMAT_POLICIES[1:]:
+        r = out[policy]
+        checks[f"{policy}: loss within 2e-5 of off"] = (
+            abs(r["loss"] - off["loss"]) <= F32_TOL * abs(off["loss"]))
+        checks[f"{policy}: gradients within 2e-5 of off"] = (
+            r["grad_rel"] < F32_TOL)
+        checks[f"{policy}: gradient pass peak below off's"] = (
+            r["grads_peak"] < off["grads_peak"])
+        checks[f"{policy}: step peak below off's"] = (
+            r["step_peak"] < off["step_peak"])
+        checks[f"{policy}: flash_attention twice a layer"] = (
+            r["flash"] == 2 * cfg.n_layers)
+    checks["off: flash_attention once a layer"] = off["flash"] == cfg.n_layers
+    return [f"13b {k}" for k, ok in checks.items() if not ok]
+
+
+def restore_placed(mesh, params, specs):
+    """13c: 13a's last placed params saved whole, restored into placement
+    (``restore(shardings=)``) and whole on the card: bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.bridge import tree_map
+    from repro_torch.dist import CheckpointManager, tree_flatten
+    from repro_torch.dist.checkpoint import TensorSpec
+    from repro_torch.dist.sharding import to_named, unplace
+    d = os.path.join(DIST_DIR, "ckpt")
+    whole = unplace(params, specs, mesh)
+    tmpl = tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), whole)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_flatten(whole))
+    mgr = CheckpointManager(d)
+    t0 = time.perf_counter()
+    mgr.save(0, whole)
+    save_s = time.perf_counter() - t0
+    del whole
+    t0 = time.perf_counter()
+    _, placed = mgr.restore(tmpl, shardings=to_named(specs, mesh))
+    torch.cuda.synchronize()
+    placed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, plain = mgr.restore(tmpl, device="cuda")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same = all(a.device.type == "cuda" and torch.equal(a, b) for a, b in
+               zip(tree_flatten(placed), tree_flatten(plain)))
+    same_run = all(torch.equal(a, b) for a, b in
+                   zip(tree_flatten(placed), tree_flatten(params)))
+    shutil.rmtree(d, ignore_errors=True)
+    say(f"  13c {nbytes / 2**30:.2f} GiB of placed params saved in "
+        f"{save_s:.2f} s; restore(shardings=) {placed_s:.2f} s, "
+        f"restore(device='cuda') {plain_s:.2f} s; bit-equal {same}, equal "
+        f"to 13a's params {same_run}")
+    checks = {"restore(shardings=) == restore(device='cuda')": same,
+              "restored == the params saved": same_run}
+    return [f"13c {k}" for k, ok in checks.items() if not ok]
+
+
+def placed_cured_olmo(mesh):
+    """13d: olmo-1b with its CUR targets (wq, wk, w_gate) CURed in 4
+    layers (folded, r_max 256):
+    the placed forward (each folded weight through cur_matmul on its
+    local R) under no_grad, and in grad mode with nothing requiring a
+    gradient, against the unplaced forward, in bf16 and f32."""
+    import torch
+    from repro_torch.configs import CURConfig, get_config
+    from repro_torch.core import calibrate, compress_model
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.dist.sharding import Placed, param_pspecs, place
+    from repro_torch.kernels.cur_matmul import cur_matmul as cm
+    from repro_torch.models import forward, init_params
+    cfg = get_config("olmo-1b")
+    B, S, n_cur = CURED_OLMO
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=6),
+                        "cuda").batch_at(0)
+    params = init_params(0, cfg, "cuda")
+    with torch.no_grad():
+        calib = calibrate(params, cfg, [batch])
+    params, cfg, info = compress_model(params, cfg, CURConfig(
+        enabled=True, r_max=256, n_compress_layers=n_cur, fold_u=True),
+        calib)
+    del calib
+    n_w = len(info.weights)
+    say(f"  13d olmo-1b, layers {info.layers} CURed "
+        f"({', '.join(sorted({w.name for w in info.weights}))} at r "
+        f"{sorted({w.rank for w in info.weights})}, folded), batch {B} x "
+        f"{S}")
+    checks = {}
+    for tol in (BF16_TOL, F32_TOL):
+        if tol == F32_TOL:
+            params, cfg = _to_f32(params), cfg.replace(dtype="float32")
+        specs = param_pspecs(params, cfg, mesh)
+        placed, lay = place(params, specs, mesh), Placed(mesh, specs)
+        with torch.no_grad():
+            ref = forward(params, cfg, batch)
+            c0 = cm.launches
+            got = forward(placed, cfg, batch, lay)
+            n_off = cm.launches - c0
+        c0 = cm.launches
+        got_on = forward(placed, cfg, batch, lay)
+        n_on = cm.launches - c0
+        rel = max(rel_err(got, ref), rel_err(got_on, ref))
+        say(f"    {cfg.dtype}: placed forward vs unplaced {rel:.3e} (bound "
+            f"{tol}); cur_matmul launches {n_off} under no_grad, {n_on} "
+            f"in grad mode ({n_w} folded weights)")
+        checks[f"{cfg.dtype} placed forward within {tol}"] = (
+            rel < tol and bool(torch.isfinite(got).all()))
+        checks[f"{cfg.dtype} cur_matmul once per folded weight"] = (
+            n_off == n_on == n_w)
+        del ref, got, got_on, placed
+    del params
+    torch.cuda.empty_cache()
+    return [f"13d {k}" for k, ok in checks.items() if not ok]
+
+
+def phase_placed():
+    """Phase 13: sharded training on the card at world size 1: an NCCL
+    process group on phase 12's FileStore (under build/, no TCP port) and
+    a 1 x 1 ("data", "model") mesh. Each part is driven with the counts
+    set to 0 just before it and read just after. Returns the summed
+    counts."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    say("== phase 13: sharded training (NCCL, world size 1, 1 x 1 mesh)")
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(DIST_DIR, "store"), 1),
+        rank=0, world_size=1)
+    total = {"cur_matmul": 0, "flash_attention": 0, "paged_attention": 0}
+    failed, kept = [], {}
+    try:
+        mesh = make_local_mesh((1, 1), ("data", "model"), device="cuda")
+
+        def a():
+            out, kept["params"], kept["specs"] = placed_olmo(mesh)
+            return out
+
+        def c():
+            out = restore_placed(mesh, kept["params"], kept["specs"])
+            kept.clear()
+            return out
+
+        # 13c restores 13a's params, and 13d's CURed model is freed,
+        # before 13b measures peak memory
+        for name, part in (("13a", a), ("13c", c),
+                           ("13d", lambda: placed_cured_olmo(mesh)),
+                           ("13b", lambda: remat_olmo(mesh))):
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            failed += part()
+            torch.cuda.synchronize()
+            n = _counts()
+            for k, v in n.items():
+                total[k] += v
+            gc.collect()
+            torch.cuda.empty_cache()
+            say(f"  {name} launches {json.dumps(n)}, "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        kept.clear()
+        dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    say(f"  phase 13 launches {json.dumps(total)}, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise SystemExit(f"sharded training checks failed: {failed}")
+    return total
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (all by default)")
     ap.add_argument("--cpu-progressive", nargs=2, metavar=("IN", "OUT"),
                     help="phase 10e's CPU run (started by phase 10)")
@@ -4508,24 +4911,29 @@ def main():
         family_launches = phase_families()
     if 12 in phases:
         dist_launches = phase_dist()
+    if 13 in phases:
+        placed_launches = phase_placed()
     if 8 in phases and run is not None:
         phase_split(run, heal_case)
-    if phases != set(range(1, 13)):
+    if phases != set(range(1, 14)):
         say(f"ran phases {sorted(phases)} only: no kernel table")
         return 1
     # launches on the main paths: the last cure() run (its generate stage
     # included) with both perplexity passes (phase 6), phase 7's runs,
     # phase 9's training, healing and trained-weights runs, phase 10's
-    # planning parts, phase 11's families and phase 12's meshed runs
+    # planning parts, phase 11's families, phase 12's meshed runs and
+    # phase 13's placed training
     launches = {k: main_launches.get(k, 0) + serve_launches[k]
                 + train_launches[k] + plan_launches[k] + family_launches[k]
-                + dist_launches[k] for k in serve_launches}
+                + dist_launches[k] + placed_launches[k]
+                for k in serve_launches}
     say(f"launches phase 6 {json.dumps(main_launches)}, phase 7 "
         f"{json.dumps(serve_launches)}, phase 9 "
         f"{json.dumps(train_launches)}, phase 10 "
         f"{json.dumps(plan_launches)}, phase 11 "
         f"{json.dumps(family_launches)}, phase 12 "
-        f"{json.dumps(dist_launches)}")
+        f"{json.dumps(dist_launches)}, phase 13 "
+        f"{json.dumps(placed_launches)}")
     meta = {
         "cur_matmul": ("src/repro_torch/csrc/cur_matmul.cu",
                        "src/repro/kernels/cur_matmul/cur_matmul.py:48"),

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.bridge import NP_TO_TORCH
+from repro_torch.bridge import NP_TO_TORCH, flatten_up_to
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 _BF16_TAG = "bfloat16"
@@ -340,13 +340,19 @@ class CheckpointManager:
 
     # -- restore ------------------------------------------------------------
 
-    def restore(self, template: Any, device=None,
-                step: Optional[int] = None) -> Tuple[int, Any]:
+    def restore(self, template: Any, shardings: Any = None,
+                step: Optional[int] = None,
+                device=None) -> Tuple[int, Any]:
         """Load the newest valid checkpoint (or ``step``) into the
-        structure of ``template`` (tensors or :class:`TensorSpec` leaves),
-        each leaf placed on ``device`` as it loads (``"cuda"`` unless the
-        caller asks for the CPU). Returns (step, tree)."""
-        device = resolve_device(device)
+        structure of ``template`` (whole tensors or :class:`TensorSpec`
+        leaves). Returns (step, tree).
+
+        ``shardings``: a tree of ``NamedSharding`` (mesh, spec) leaves
+        (``repro_torch.dist.sharding.to_named``) matching ``template``:
+        each leaf is read memory-mapped and only this rank's block is
+        copied out and moved to the mesh's device, so no rank holds a
+        whole sharded leaf. Without it every leaf is placed whole on
+        ``device`` (``"cuda"`` unless the caller asks for the CPU)."""
         if step is None:
             step = self.latest_valid_step()
         if step is None:
@@ -360,9 +366,18 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint {step} has {manifest['n_leaves']} leaves, "
                 f"template has {len(flat)}")
+        if shardings is None:
+            device = resolve_device(device)
+            sh_flat = [None] * len(flat)
+        else:
+            sh_flat = [s for t, s in zip(flatten_up_to(template, template),
+                                         flatten_up_to(template, shardings))
+                       if t is not None]
         out = []
-        for i, (entry, tmpl) in enumerate(zip(manifest["leaves"], flat)):
-            arr = np.load(os.path.join(d, entry["file"]))
+        for i, (entry, tmpl, sh) in enumerate(zip(manifest["leaves"], flat,
+                                                  sh_flat)):
+            arr = np.load(os.path.join(d, entry["file"]),
+                          mmap_mode=None if sh is None else "r")
             tshape = getattr(tmpl, "shape", None)
             if tshape is not None and tuple(arr.shape) != tuple(tshape):
                 raise ValueError(
@@ -370,5 +385,26 @@ class CheckpointManager:
                     f"shape {tuple(arr.shape)}, template expects "
                     f"{tuple(tshape)}: wrong arch/config for this "
                     f"checkpoint dir?")
-            out.append(_from_host(arr, entry["dtype"], device))
+            if sh is None:
+                out.append(_from_host(arr, entry["dtype"], device))
+            else:
+                # a copy of this rank's block only (not a view of the map)
+                out.append(_from_host(
+                    np.array(arr[_block_index(arr.shape, sh)]),
+                    entry["dtype"], resolve_device(sh.mesh.device_type)))
         return step, tree_unflatten(template, out)
+
+
+def _block_index(shape, sharding):
+    """This rank's slices of a leaf of ``shape`` under a NamedSharding."""
+    from repro_torch.dist.collectives import axes_index, axes_size
+    index = []
+    for d, entry in enumerate(sharding.spec or ()):
+        if entry is None:
+            index.append(slice(None))
+            continue
+        n = axes_size(sharding.mesh, entry)
+        step = shape[d] // n
+        lo = axes_index(sharding.mesh, entry) * step
+        index.append(slice(lo, lo + step))
+    return tuple(index)

@@ -19,8 +19,19 @@ every rank of the group computes the same thing outside the body:
 
 (``torch.distributed.nn.functional.all_reduce`` all-reduces the incoming
 gradient again in its backward, which multiplies a replicated gradient by
-the group's size.) An op over several axes (``("pod", "data")``) works
-major axis first, as a JAX PartitionSpec entry does.
+the group's size.) Two more serve placed weights and rank-local consumers,
+where the cotangent differs from rank to rank:
+
+  all_gather   forward: all-gather;         backward: reduce-scatter (sum)
+  psum         forward: all-reduce (sum);   backward: all-reduce (sum)
+
+``all_gather`` is the FSDP weight gather: each data rank's gradient of the
+gathered weight comes from its own rows, so the backward sums them and
+keeps this rank's block (``gather`` would keep only this rank's own
+contribution). ``psum`` is a sum whose result every rank then uses in its
+own way (a norm's statistics over a sharded feature dim). An op over
+several axes (``("pod", "data")``) works major axis first, as a JAX
+PartitionSpec entry does.
 """
 from __future__ import annotations
 
@@ -33,10 +44,16 @@ import torch.distributed as dist
 from repro_torch.launch.mesh import axis_sizes
 
 
-def _axes(axes) -> Tuple[str, ...]:
+def entry_axes(axes) -> Tuple[str, ...]:
+    """The axis names of a spec entry (a name, a tuple of names, None)."""
     if axes is None:
         return ()
     return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis ``spec`` shards a dim over, in dim order."""
+    return tuple(a for e in (spec or ()) for a in entry_axes(e))
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:
@@ -47,14 +64,14 @@ def dp_axes(mesh) -> Tuple[str, ...]:
 
 def axes_size(mesh, axes) -> int:
     sizes = axis_sizes(mesh)
-    return math.prod(sizes[a] for a in _axes(axes))
+    return math.prod(sizes[a] for a in entry_axes(axes))
 
 
 def axes_index(mesh, axes) -> int:
     """This rank's block index over ``axes`` (row-major, major first)."""
     sizes = axis_sizes(mesh)
     idx = 0
-    for a in _axes(axes):
+    for a in entry_axes(axes):
         idx = idx * sizes[a] + mesh.get_local_rank(a)
     return idx
 
@@ -65,13 +82,15 @@ def block(x, dim: int, mesh, axes):
     n = axes_size(mesh, axes)
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
-                         f"{n} ways over {_axes(axes)}")
+                         f"{n} ways over {entry_axes(axes)}")
     step = x.shape[dim] // n
     return x.narrow(dim, axes_index(mesh, axes) * step, step)
 
 
-def _all_gather_cat(x, dim: int, mesh, axes):
-    for a in reversed(_axes(axes)):           # minor axis first
+def all_gather_cat(x, dim: int, mesh, axes):
+    """Every rank's ``x`` over ``axes`` concatenated along ``dim`` in
+    block order (no gradient)."""
+    for a in reversed(entry_axes(axes)):           # minor axis first
         g = mesh.get_group(a)
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
         dist.all_gather(parts, x.contiguous(), group=g)
@@ -81,15 +100,39 @@ def _all_gather_cat(x, dim: int, mesh, axes):
 
 def all_reduce(x, mesh, axes):
     """In-place sum of ``x`` over ``axes`` (no gradient)."""
-    for a in _axes(axes):
+    for a in entry_axes(axes):
         dist.all_reduce(x, group=mesh.get_group(a))
+    return x
+
+
+def all_reduce_max(x, mesh, axes):
+    """In-place maximum of ``x`` over ``axes`` (no gradient)."""
+    for a in entry_axes(axes):
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    return x
+
+
+def reduce_scatter(x, dim: int, mesh, axes):
+    """This rank's block along ``dim`` of the sum of ``x`` over ``axes``
+    (no gradient): the all-reduce's sum, of which each rank keeps the
+    block it owns."""
+    for a in entry_axes(axes):                     # major axis first
+        g = mesh.get_group(a)
+        n = dist.get_world_size(g)
+        parts = [p.contiguous() for p in x.chunk(n, dim=dim)]
+        if len(parts) != n or x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"split {n} ways over {a}")
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=g)
+        x = out
     return x
 
 
 def all_gather_stack(x, mesh, axes):
     """(n, *x.shape): every rank's ``x`` over ``axes``, stacked in block
     order (``lax.all_gather``; no gradient)."""
-    return _all_gather_cat(x[None], 0, mesh, axes)
+    return all_gather_cat(x[None], 0, mesh, axes)
 
 
 def _copy(x):
@@ -104,14 +147,14 @@ class _Scatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather_cat(g, *ctx.args), None, None, None
+        return all_gather_cat(g, *ctx.args), None, None, None
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, mesh, axes):
         ctx.args = (dim, mesh, axes)
-        return _all_gather_cat(x, dim, mesh, axes)
+        return all_gather_cat(x, dim, mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
@@ -139,6 +182,28 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes):
+        ctx.args = (dim, mesh, axes)
+        return all_gather_cat(x, dim, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, *ctx.args), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return all_reduce(_copy(x), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(_copy(g), *ctx.args), None, None
+
+
 def _a2a(x, group):
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=group)
@@ -157,20 +222,34 @@ class _AllToAll(torch.autograd.Function):
 
 
 def scatter(x, dim: int, mesh, axes: Sequence[str] | str):
-    return _Scatter.apply(x, dim, mesh, _axes(axes))
+    return _Scatter.apply(x, dim, mesh, entry_axes(axes))
 
 
 def gather(x, dim: int, mesh, axes: Sequence[str] | str):
-    return _Gather.apply(x, dim, mesh, _axes(axes))
+    return _Gather.apply(x, dim, mesh, entry_axes(axes))
 
 
 def copy_to(x, mesh, axes: Sequence[str] | str):
-    axes = _axes(axes)
+    axes = entry_axes(axes)
     return _CopyTo.apply(x, mesh, axes) if axes else x
 
 
 def reduce_from(x, mesh, axes: Sequence[str] | str):
-    return _ReduceFrom.apply(x, mesh, _axes(axes))
+    return _ReduceFrom.apply(x, mesh, entry_axes(axes))
+
+
+def all_gather(x, dim: int, mesh, axes: Sequence[str] | str):
+    """The whole of ``x`` along ``dim`` over ``axes``, whose backward
+    reduce-scatters (sums) the cotangent: the FSDP weight gather."""
+    axes = entry_axes(axes)
+    return _AllGather.apply(x, dim, mesh, axes) if axes else x
+
+
+def psum(x, mesh, axes: Sequence[str] | str):
+    """Sum of ``x`` over ``axes`` whose backward sums the cotangents too
+    (``lax.psum`` of a value each rank consumes differently)."""
+    axes = entry_axes(axes)
+    return _Psum.apply(x, mesh, axes) if axes else x
 
 
 def all_to_all(x, mesh, axis: str):

@@ -10,7 +10,11 @@ scale per row): the same format as the optimizer's 8-bit moments
 its tensor, the int8 codes + scales are all-gathered over the axes'
 groups (the compressed payload is what crosses the interconnect), and the
 reduction happens locally in f32. ``ef_psum_grads`` is the mesh train
-step's error-feedback reduction through it.
+step's error-feedback reduction through it; on placed gradients (each
+rank's shards) a leaf's residual is shaped like its shard, a row whose
+last dim is sharded takes its scale as the max over that dim's ranks,
+and a leaf sharded over a batch axis (FSDP: its gradient was already
+summed over it) is reduced over the other batch axes only.
 
 ``ef_compress_grads`` implements error feedback (EF-SGD): the previous
 round's quantization residual is added to the gradient before
@@ -23,10 +27,11 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.bridge import flatten_up_to, tree_map, unflatten_as
-from repro_torch.dist.collectives import all_gather_stack, axes_size
+from repro_torch.dist.collectives import all_gather_stack, spec_axes
 # one quantizer: the gradient wire format IS the optimizer's moment format
 from repro_torch.optim.adamw import dq8_rowwise as _dq8
 from repro_torch.optim.adamw import q8_rowwise as _q8
+from repro_torch.optim.adamw import sharded_rowmax
 
 
 @torch.no_grad()
@@ -92,23 +97,34 @@ def _map2(one, grads, residuals):
 
 
 @torch.no_grad()
-def ef_psum_grads(grads: Any, residuals: Any, mesh, axes) -> Tuple[Any, Any]:
+def ef_psum_grads(grads: Any, residuals: Any, mesh, axes,
+                  specs: Any = None) -> Tuple[Any, Any]:
     """Error-feedback reduction of this rank's gradient tree over the mesh
-    ``axes``: the mean over the ranks of their wire-format gradients, and
+    ``axes``: the sum over the ranks of their wire-format gradients, and
     this rank's new residuals,
 
-        comp_i = g_i + r_i;  mean = sum_i dq(q(comp_i)) / n;
+        comp_i = g_i + r_i;  sum = sum_i dq(q(comp_i));
         r_i' = comp_i - dq(q(comp_i))
 
     Only codes and scales cross the interconnect (``compressed_psum``'s
     all-gather); each rank keeps its own residuals. On one rank this is
-    :func:`ef_compress_grads`, bit for bit."""
-    n = axes_size(mesh, axes)
+    :func:`ef_compress_grads`, bit for bit. ``specs`` (the params' spec
+    tree) marks the gradients as placed shards (see the module
+    docstring)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    flat_g = flatten_up_to(grads, grads)
+    flat_s = (flatten_up_to(grads, specs) if specs is not None
+              else [None] * len(flat_g))
 
-    def one(g, r):
+    def one(g, r, spec):
         comp = g.to(torch.float32) + r
-        q, scale = _q8(comp)
-        total = _sum_codes(q, scale, mesh, axes)
-        return (total / n).to(g.dtype), comp - _dq8(q, scale)
+        q, scale = _q8(comp, rowmax=sharded_rowmax(mesh, spec))
+        total = _sum_codes(q, scale, mesh, tuple(
+            a for a in axes if a not in spec_axes(spec)))
+        return total.to(g.dtype), comp - _dq8(q, scale)
 
-    return _map2(one, grads, residuals)
+    out = [None if g is None else one(g, r, s)
+           for g, r, s in zip(flat_g, flatten_up_to(grads, residuals),
+                              flat_s)]
+    return (unflatten_as(grads, [o and o[0] for o in out]),
+            unflatten_as(grads, [o and o[1] for o in out]))

@@ -31,17 +31,29 @@ A spec is the port's :class:`PartitionSpec`: a tuple with one entry per
 tensor dim, each an axis name, a tuple of axis names (major first) or
 ``None``; a ``None`` spec is a replicated leaf. ``mesh`` is a
 ``DeviceMesh`` or an :class:`AbstractMesh`. :func:`to_placements` turns a
-spec into DTensor placements (``NamedSharding`` in JAX) and
-:func:`distribute` places a tree by its specs. In this slice the model's
-weights stay replicated: the specs drive DTensor placement and the batch
-split of the train step (``local_shard``).
+spec into DTensor placements and :func:`distribute` places a tree by its
+specs as DTensors.
+
+The model and the train step run on plain tensors: :func:`place` gives
+each rank its local shard of every leaf (the slice JAX's
+``NamedSharding`` gives the device at the same mesh position), and a
+:class:`Placed` (a mesh with the params' specs) tells the model functions
+that their params are such shards (``jax.jit``'s ``in_shardings``).
+:func:`to_named` gives the per-leaf (mesh, spec) pairs that
+``CheckpointManager.restore(shardings=)`` reads into, and :func:`unplace`
+all-gathers a placed tree back to whole tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional, Sequence, Tuple
 
+import torch
+
+from repro_torch.bridge import flatten_up_to, unflatten_as
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.dist.collectives import block
+from repro_torch.dist.collectives import (
+    all_gather_cat, axes_size, block, entry_axes, spec_axes)
 from repro_torch.launch.mesh import AbstractMesh, axis_sizes
 from repro_torch.optim.adamw import (
     STATE_FULL_KEYS, STATE_SCALE_KEYS, state_spec_from_param)
@@ -243,6 +255,23 @@ def param_pspecs(params, cfg: ModelConfig, mesh):
                  lambda path, leaf: _leaf_spec(path, leaf, cfg, mesh))
 
 
+_MOE_ROLES = ("router", "w_gate", "w_up", "w_down")
+
+
+def moe_pspecs(params, cfg: ModelConfig, mesh):
+    """:func:`param_pspecs` with every leaf but the routed MoE layers'
+    (the router and the experts; not a shared expert) replicated: the
+    placement the engine's prefill and decode run under, whose attention,
+    Mamba and caches take whole weights (ROADMAP 18.3)."""
+    def one(path, leaf):
+        blk = _block_spec_at(path, cfg)
+        if (blk is None or blk.mlp != "moe" or "shared" in path
+                or _split_path(path)[0] not in _MOE_ROLES):
+            return None
+        return _leaf_spec(path, leaf, cfg, mesh)
+    return _walk(params, (), one)
+
+
 def draft_param_pspecs(draft_params, cfg: ModelConfig, mesh):
     """Specs for a speculative-decoding DRAFT parameter tree on the same
     mesh as the target's: the same layout contract, whose low CUR ranks
@@ -379,12 +408,6 @@ def paged_decode_pspecs(cfg: ModelConfig, batch: int, max_blocks: int, mesh,
 # placement (NamedSharding in JAX)
 # ---------------------------------------------------------------------------
 
-def _entry_axes(entry) -> Tuple[str, ...]:
-    if entry is None:
-        return ()
-    return (entry,) if isinstance(entry, str) else tuple(entry)
-
-
 def to_placements(spec, mesh):
     """DTensor placements, one per mesh dim, for ``spec``: ``Shard(d)``
     on each mesh axis that tensor dim ``d`` names, ``Replicate()`` on the
@@ -395,7 +418,7 @@ def to_placements(spec, mesh):
     names = list(axis_sizes(mesh))
     out = [Replicate() for _ in names]
     for d, entry in enumerate(spec or ()):
-        axes = _entry_axes(entry)
+        axes = entry_axes(entry)
         pos = [names.index(a) for a in axes]
         if pos != sorted(pos):
             raise ValueError(f"spec entry {entry} is not in mesh order "
@@ -430,3 +453,116 @@ def local_shard(t, spec, mesh):
         if entry is not None:
             t = block(t, d, mesh, entry)
     return t
+
+
+# ---------------------------------------------------------------------------
+# placement on plain tensors (the model's and the train step's)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """``jax.sharding.NamedSharding``: a leaf's mesh and spec (``None``:
+    replicated)."""
+    mesh: Any
+    spec: Any = None
+
+
+def map_specs(fn, specs):
+    """``fn(spec)`` at every leaf of a spec tree (a spec, a tuple
+    subclass, is a leaf; so is ``None``)."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list) or (isinstance(specs, tuple)
+                                   and not isinstance(specs, P)):
+        return type(specs)(map_specs(fn, v) for v in specs)
+    return fn(specs)
+
+
+def to_named(specs, mesh):
+    """PartitionSpec tree -> :class:`NamedSharding` tree (``None`` ->
+    replicated), for ``CheckpointManager.restore(shardings=)``."""
+    return map_specs(lambda s: NamedSharding(mesh, s), specs)
+
+
+def _per_leaf(fn, tree, specs):
+    """``fn(leaf, spec)`` at every leaf of ``tree`` (``None`` stays)."""
+    return unflatten_as(tree, [
+        None if t is None else fn(t, s) for t, s in
+        zip(flatten_up_to(tree, tree), flatten_up_to(tree, specs))])
+
+
+def place(tree, specs, mesh):
+    """Each rank's local shard of every leaf of ``tree`` (whole tensors)
+    per ``specs``, as a plain tensor: a contiguous copy of the block
+    (:func:`local_shard`), so the whole leaf can be freed; a leaf whose
+    block is the whole of it (replicated, or over axes of size 1) is
+    returned as it is."""
+    def one(t, spec):
+        if axes_size(mesh, spec_axes(spec)) == 1:
+            return t
+        return local_shard(t, spec, mesh).clone(
+            memory_format=torch.contiguous_format)
+    return _per_leaf(one, tree, specs)
+
+
+def unplace(tree, specs, mesh):
+    """The inverse of :func:`place`: every sharded leaf all-gathered over
+    its spec's axes (every rank gets the whole tensor; no gradient)."""
+    def one(t, spec):
+        for d, entry in enumerate(spec or ()):
+            if entry is not None:
+                t = all_gather_cat(t, d, mesh, entry_axes(entry))
+        return t
+    return _per_leaf(one, tree, specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """A ``DeviceMesh`` whose params are placed (:func:`place`) per
+    ``specs``: what the model functions and the train step take as
+    ``mesh`` for placed params.
+
+    ``local_rows``: the activations' rows are already this rank's (the
+    train step's micro-batches); otherwise every rank passes the same
+    global batch and only the MoE bodies split it, as under a plain
+    mesh. Gradients through a placed model are taken only with local
+    rows: the FSDP gathers' backward sums over the data ranks' rows."""
+    mesh: Any
+    specs: Any
+    local_rows: bool = False
+
+    def sub(self, key) -> "Placed":
+        """The same placement for the subtree ``key`` of the specs."""
+        return Placed(self.mesh, self.specs[key], self.local_rows)
+
+    def spec(self, key):
+        """The spec of leaf (or CUR / adapter dict) ``key``; ``None`` when
+        the tree has no entry for it."""
+        if isinstance(self.specs, dict):
+            return self.specs.get(key)
+        return None
+
+
+def _spec_of(entries):
+    """A spec of ``entries``, or None when none shards its dim."""
+    return P(*entries) if any(e is not None for e in entries) else None
+
+
+def drop_lead(spec):
+    """The spec of one repeat of a stacked leaf (its leading ``repeats``
+    dim is never sharded)."""
+    return None if spec is None else _spec_of(tuple(spec)[1:])
+
+
+def state_specs(params, specs, opt_state):
+    """The spec tree of an AdamW state from its params' specs: moments
+    take the param's spec, int8 row scales the param's minus its last
+    dim (``state_spec_from_param``), the step count none. Placed or whole
+    trees alike (the shapes are not read)."""
+    def key_spec(spec, key):
+        return _spec_of(state_spec_from_param(tuple(spec or ()), key))
+
+    flat = [None if mom is None else {k: key_spec(spec, k) for k in mom}
+            for spec, mom in zip(flatten_up_to(params, specs),
+                                 flatten_up_to(params, opt_state["moments"]))]
+    return {"step": None, "moments": unflatten_as(params, flat)}

@@ -107,7 +107,7 @@ def load_draft(directory: str, cfg, device):
     (``compress_model``'s layout), so its cfg is ``cfg`` unrolled; a tree
     with ``cfg``'s groups keeps ``cfg``."""
     template = load_tree_template(os.path.join(directory, "template.json"))
-    step, tree = CheckpointManager(directory).restore(template, device)
+    step, tree = CheckpointManager(directory).restore(template, device=device)
     params = tree["params"]
     if len(params["groups"]) != len(cfg.groups):
         cfg = unrolled_config(cfg)

@@ -8,6 +8,16 @@ the chunked/banded plain paths. ``DENSE_MAX`` and ``CHUNK`` stay module
 globals here, as in the JAX package, and ``_mix`` threads the live values
 through the registry on every call.
 
+Under a placed mesh (:func:`attn_forward`'s ``mesh``, a
+``repro_torch.dist.sharding.Placed`` of the layer) the projections run
+their Megatron layouts through ``apply_w``. When the column shards hold
+whole heads (H and K divide over 'model') attention runs on this rank's
+heads: Q heads in contiguous blocks, so each GQA group stays on one rank.
+Otherwise (a shard that cuts through a head: gemma3's one kv head of 256
+divides over 4 by width, not by heads) the projections are all-gathered
+over 'model', attention runs whole on every rank, and this rank's block
+of its output feeds the row-parallel ``wo``. Both give JAX's values.
+
 Decode (:func:`attn_decode`): one query token against a dense per-layer
 KV cache, in plain tensor ops (it runs outside any Pallas kernel in the
 JAX package too); local layers keep a ring buffer of ``window`` slots.
@@ -22,7 +32,10 @@ import torch
 from repro_torch.attention import registry as attn_registry
 from repro_torch.attention import xla as attn_xla
 from repro_torch.attention.xla import NEG_INF
-from repro_torch.models.layers import apply_rope, apply_w, rms_norm
+from repro_torch.dist import collectives as col
+from repro_torch.launch.mesh import axis_sizes
+from repro_torch.models.layers import (
+    apply_rope, apply_w, out_local, rms_norm, to_input)
 
 DENSE_MAX = attn_xla.DENSE_MAX   # dense softmax at/below this seq length
 CHUNK = attn_xla.CHUNK           # flash chunk (query and kv)
@@ -55,8 +68,11 @@ def _mix(qg, k, v, positions, window, scale, cfg=None):
                              dense_max=DENSE_MAX)
 
 
-def attn_forward(x, p, cfg, positions, *, window: int = 0):
-    """Full-sequence attention. x (B,S,D) -> (B,S,D)."""
+def attn_forward(x, p, cfg, positions, *, window: int = 0, mesh=None):
+    """Full-sequence attention. x (B,S,D) -> (B,S,D). ``mesh``: a
+    ``Placed`` of this layer's params (see the module docstring)."""
+    if mesh is not None:
+        return _attn_placed(x, p, cfg, positions, window, mesh)
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     scale = hd ** -0.5
@@ -65,6 +81,36 @@ def attn_forward(x, p, cfg, positions, *, window: int = 0):
     o = _mix(qg, k, v, positions, window, scale, cfg)
     o = o.reshape(B, S, H * hd)
     return apply_w(o, p["wo"])
+
+
+def _attn_placed(x, p, cfg, positions, window, lay):
+    """attn_forward on a rank's shards: local heads, or the gather
+    fallback when a column shard cuts through a head."""
+    B, S, D = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    mesh = lay.mesh
+    n = axis_sizes(mesh)["model"]
+    names = ("wq", "wk", "wv")
+    ys = [apply_w(x, p[w], lay.spec(w), mesh) for w in names]
+    local = [out_local(lay.spec(w)) for w in names]
+    if all(local) and H % n == 0 and K % n == 0:
+        Hl, Kl, heads_local = H // n, K // n, True
+    else:
+        ys = [col.gather(y, -1, mesh, "model") if loc else y
+              for y, loc in zip(ys, local)]
+        Hl, Kl, heads_local = H, K, False
+    q = ys[0].reshape(B, S, Hl, hd)
+    k = ys[1].reshape(B, S, Kl, hd)
+    v = ys[2].reshape(B, S, Kl, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = _mix(_group_q(q, Kl), k, v, positions, window, hd ** -0.5, cfg)
+    o = to_input(o.reshape(B, S, Hl * hd), heads_local, lay.spec("wo"),
+                 mesh)
+    return apply_w(o, p["wo"], lay.spec("wo"), mesh)
 
 
 def attn_prefill(x, p, cfg, positions, cache, *, window: int = 0):

@@ -10,6 +10,18 @@ by ``repro_torch.core.compress``:
 or a PEFT adapter made by ``repro_torch.core.peft`` (``{"base": W, ...}``
 with LoRA, MoRA or CURLoRA leaves). ``apply_w(x, w)`` dispatches on the
 form, so compressed, adapted and dense layers share all model code.
+
+Under a mesh ``apply_w(x, w, spec, mesh)`` takes this rank's shard of
+``w`` (``repro_torch.dist.sharding.place``) and its spec, and runs the
+Megatron layouts explicitly: a dim sharded over 'data' (FSDP) is
+all-gathered just before use (:func:`gather_fsdp`; its backward
+reduce-scatters), a column-parallel weight gives this rank's output
+columns, and a row-parallel one takes this rank's input columns and
+all-reduces its partial output over 'model'. A CUR dict takes its specs
+per factor: a column-parallel ``{CU, R}`` runs ``(x @ CU) @ R_local``
+(``cur_matmul`` on the card, dispatched as on one device: a folded
+weight the kernel takes raises under autograd), a row-parallel one
+all-reduces the rank-space ``(M, r)`` partial product before ``@ R``.
 """
 from __future__ import annotations
 
@@ -18,6 +30,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist import collectives as col
 
 
 # ---------------------------------------------------------------------------
@@ -62,11 +76,128 @@ def _mora_apply(x, M, n_out: int):
     return y.repeat((1,) * (y.dim() - 1) + (reps,))[..., :n_out]
 
 
-def apply_w(x: torch.Tensor, w) -> torch.Tensor:
+# the batch axes: a weight dim sharded over them is an FSDP dim
+_BATCH_AXES = ("pod", "data")
+
+
+def is_model(entry) -> bool:
+    """Whether a spec entry shards its dim over 'model' (TP)."""
+    return "model" in col.entry_axes(entry)
+
+
+def weight_axes(spec):
+    """(input-dim entry, output-dim entry) of a weight's spec: a dense
+    weight's 2-entry spec, or a CUR dict's factor specs (``C`` / ``CU``
+    give the input dim, ``R`` the output dim). An adapter or a
+    replicated weight gives (None, None)."""
+    if isinstance(spec, dict):
+        left = spec.get("CU", spec.get("C"))
+        right = spec.get("R")
+        return (left[0] if left else None, right[-1] if right else None)
+    if spec is None:
+        return None, None
+    return spec[-2], spec[-1]
+
+
+def gather_fsdp(w, spec, mesh):
+    """``w`` (a tensor or a dict of them) with every dim its spec shards
+    over a batch axis all-gathered: the FSDP (ZeRO-3) gather, whose
+    backward sums the data ranks' gradients and keeps this rank's
+    block."""
+    if isinstance(w, dict):
+        return {k: gather_fsdp(v, spec.get(k) if isinstance(spec, dict)
+                               else None, mesh) for k, v in w.items()}
+    if w is None:
+        return None
+    for d, entry in enumerate(spec or ()):
+        ax = tuple(a for a in col.entry_axes(entry) if a in _BATCH_AXES)
+        if ax:
+            w = col.all_gather(w, d, mesh, ax)
+    return w
+
+
+def to_input(h, local: bool, spec, mesh):
+    """Activation ``h`` (this rank's columns over 'model' when ``local``,
+    else whole) as the weight of ``spec`` takes it: this rank's columns
+    for a row-parallel weight, the whole row otherwise."""
+    want = is_model(weight_axes(spec)[0])
+    if want and not local:
+        return col.scatter(h, -1, mesh, "model")
+    if local and not want:
+        return col.gather(h, -1, mesh, "model")
+    return h
+
+
+def out_local(spec) -> bool:
+    """Whether the weight of ``spec`` gives this rank's output columns."""
+    return is_model(weight_axes(spec)[1])
+
+
+def apply_w(x: torch.Tensor, w, spec=None, mesh=None) -> torch.Tensor:
     """x @ W for dense, CUR-factorized, or PEFT-adapted W.
-    x: (..., m) -> (..., n)."""
+    x: (..., m) -> (..., n). With a ``mesh`` (a DeviceMesh), ``w`` is this
+    rank's shard placed per ``spec`` (see the module docstring): ``x`` is
+    whole for a column-parallel or replicated weight and this rank's
+    columns for a row-parallel one; the result is this rank's columns
+    for a column-parallel weight (:func:`out_local`), whole otherwise."""
+    if mesh is None:
+        return _apply(x, w)
+    w = gather_fsdp(w, spec, mesh)
+    k_in, k_out = weight_axes(spec)
+    if is_model(k_out):
+        if is_cur(w) and _records(x, w) and not _kernel_form(x, w):
+            # column-parallel CUR under autograd: the rank-space (M, r)
+            # product is whole on every rank and feeds this rank's R
+            # columns, so its gradient (and the left factors') is summed
+            # over 'model'
+            return col.copy_to(_left(x, w), mesh, "model") @ _right(x, w)
+        # inference runs cur_matmul on the local R shard; a folded weight
+        # the kernel takes raises under autograd, as on one device
+        return _apply(col.copy_to(x, mesh, "model"), w)
+    if not is_model(k_in):
+        return _apply(x, w)
+    if not is_cur(w):
+        return col.reduce_from(x @ w, mesh, "model")
+    # row-parallel CUR: sum the rank-space (M, r) partials, not (M, n)
+    if "CU" in w:
+        return col.reduce_from(x @ w["CU"], mesh, "model") @ w["R"]
+    t = col.reduce_from(x @ w["C"].to(x.dtype), mesh, "model")
+    t = t @ (w["U0"] + w["dU"]).to(x.dtype)
+    return t @ w["R"].to(x.dtype)
+
+
+def _records(x, w) -> bool:
+    """Whether autograd records ``x @ w``: grad mode is on and ``x`` or a
+    leaf of ``w`` requires a gradient."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in w.values()))
+
+
+def _kernel_form(x, w) -> bool:
+    """Whether ``_apply`` runs the folded CUR weight ``w`` on ``x``
+    through ``cur_matmul``."""
+    return "CU" in w and use_cur_kernel(
+        w["CU"].shape[0], w["CU"].shape[1], w["R"].shape[1],
+        math.prod(x.shape[:-1]), on_cuda=x.is_cuda)
+
+
+def _left(x, w):
+    """x @ CU, or (x @ C) @ (U0 + dU): a CUR weight's rank-space product
+    (the chain's first part)."""
+    if "CU" in w:
+        return x @ w["CU"]
+    t = x @ w["C"].to(x.dtype)
+    return t @ (w["U0"] + w["dU"]).to(x.dtype)
+
+
+def _right(x, w):
+    """The R factor as the chain's second part takes it."""
+    return w["R"] if "CU" in w else w["R"].to(x.dtype)
+
+
+def _apply(x: torch.Tensor, w) -> torch.Tensor:
     if is_adapter(w):
-        y = apply_w(x, w["base"])
+        y = _apply(x, w["base"])
         if "lora_A" in w:                      # LoRA: + x A B
             y = y + (x @ w["lora_A"].to(x.dtype)) @ w["lora_B"].to(x.dtype)
         elif "mora" in w:                      # MoRA square adapter
@@ -79,9 +210,7 @@ def apply_w(x: torch.Tensor, w) -> torch.Tensor:
         return x @ w
     if "CU" in w:
         cu, r = w["CU"], w["R"]
-        M = math.prod(x.shape[:-1])
-        if use_cur_kernel(cu.shape[0], cu.shape[1], r.shape[1], M,
-                          on_cuda=x.is_cuda):
+        if _kernel_form(x, w):
             from repro_torch.kernels.cur_matmul.ops import cur_matmul_op
             return cur_matmul_op(x, cu.to(x.dtype), r.to(x.dtype))
         return (x @ cu) @ r

@@ -11,6 +11,16 @@ Projections are split (w_z, w_x, w_B, w_C, w_dt) as in the JAX package;
 CURing targets w_x (the pre-SiLU branch), which ``apply_w`` runs through
 ``cur_matmul`` once folded.
 
+Under a placed mesh (:func:`mamba_forward`'s ``mesh``, a
+``repro_torch.dist.sharding.Placed`` of the layer) the in-projections are
+column-parallel and ``w_out`` row-parallel. When the heads divide over
+'model' the scan runs on this rank's heads: B and C (one group, shared
+by every head) are all-gathered, the per-head params (conv_x, A_log, D,
+dt_bias, the gate norm's scale) are sliced to this rank's heads, and the
+gate norm's statistics over d_inner are summed over 'model'. Otherwise
+the projections are all-gathered and the mixer runs whole on every rank,
+which then feeds its block of the output to ``w_out``.
+
 Cache writes are in place: the model's prefill / decode loop hands each
 layer a view of its stacked cache and keeps no returned tensor, so
 :func:`mamba_prefill` and :func:`mamba_decode` ``copy_`` the new conv
@@ -21,7 +31,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_w, rms_norm
+from repro_torch.dist import collectives as col
+from repro_torch.launch.mesh import axis_sizes
+from repro_torch.models.layers import apply_w, out_local, rms_norm, to_input
 
 
 def softplus(x):
@@ -119,7 +131,7 @@ def _ssd(xb0, Bm0, Cm0, dt, p, cfg):
     """Convolutions, activations and the SSD scan of the projected inputs.
     Returns (y (B, S, di) before the gate, final state)."""
     B, S, _ = xb0.shape
-    nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    nh, hp = dt.shape[-1], cfg.ssm_head_dim     # this rank's heads
     xb = F.silu(_causal_conv(xb0, p["conv_x"], p["conv_x_b"]))
     Bm = F.silu(_causal_conv(Bm0, p["conv_B"], p["conv_B_b"]))
     Cm = F.silu(_causal_conv(Cm0, p["conv_C"], p["conv_C_b"]))
@@ -128,7 +140,7 @@ def _ssd(xb0, Bm0, Cm0, dt, p, cfg):
     xh = xb.reshape(B, S, nh, hp)
     y, state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + xh * p["D"].to(y.dtype)[None, None, :, None]
-    return y.reshape(B, S, cfg.d_inner), state
+    return y.reshape(B, S, nh * hp), state
 
 
 def _project(x, p):
@@ -136,8 +148,54 @@ def _project(x, p):
             apply_w(x, p["w_C"]), apply_w(x, p["w_dt"]))
 
 
-def mamba_forward(x, p, cfg, *, return_state: bool = False):
-    """Mamba-2 block. x (B, S, D) -> (B, S, D)."""
+def _mamba_placed(x, p, cfg, lay):
+    """mamba_forward on a rank's shards (see the module docstring)."""
+    mesh = lay.mesh
+    names = ("w_z", "w_x", "w_B", "w_C", "w_dt")
+    ys = {k: apply_w(x, p[k], lay.spec(k), mesh) for k in names}
+    local = {k: out_local(lay.spec(k)) for k in names}
+    for k in ("w_B", "w_C"):
+        if local[k]:
+            ys[k] = col.gather(ys[k], -1, mesh, "model")
+    heads = (cfg.ssm_heads % axis_sizes(mesh)["model"] == 0
+             and local["w_z"] and local["w_x"] and local["w_dt"])
+    q = dict(p)
+    if heads:
+        def mine(t):         # this rank's heads of a replicated leaf
+            return col.scatter(t, -1, mesh, "model")
+
+        def shared(t):       # whole on every rank, used by its heads only
+            return col.copy_to(t, mesh, "model")
+
+        for k in ("conv_x", "conv_x_b", "A_log", "D", "dt_bias"):
+            q[k] = mine(p[k])
+        for k in ("conv_B", "conv_B_b", "conv_C", "conv_C_b"):
+            q[k] = shared(p[k])
+        ys["w_B"], ys["w_C"] = shared(ys["w_B"]), shared(ys["w_C"])
+    else:
+        for k in ("w_z", "w_x", "w_dt"):
+            if local[k]:
+                ys[k] = col.gather(ys[k], -1, mesh, "model")
+    y, _ = _ssd(ys["w_x"], ys["w_B"], ys["w_C"], ys["w_dt"], q, cfg)
+    z = ys["w_z"]
+    y = y * F.silu(z.float()).to(y.dtype)
+    if heads:
+        # rms_norm over the whole d_inner: its statistics summed over ranks
+        sq = torch.sum(torch.square(y.float()), dim=-1, keepdim=True)
+        var = col.psum(sq, mesh, "model") / cfg.d_inner
+        y = y * torch.rsqrt(var + cfg.norm_eps).to(y.dtype)
+        y = y * mine(p["norm_z"]["scale"]).to(y.dtype)
+    else:
+        y = rms_norm(y, p["norm_z"]["scale"], cfg.norm_eps)
+    y = to_input(y, heads, lay.spec("w_out"), mesh)
+    return apply_w(y, p["w_out"], lay.spec("w_out"), mesh)
+
+
+def mamba_forward(x, p, cfg, *, return_state: bool = False, mesh=None):
+    """Mamba-2 block. x (B, S, D) -> (B, S, D). ``mesh``: a ``Placed``
+    of this layer's params (no ``return_state``)."""
+    if mesh is not None:
+        return _mamba_placed(x, p, cfg, mesh)
     z, xb0, Bm0, Cm0, dt = _project(x, p)
     y, state = _ssd(xb0, Bm0, Cm0, dt, p, cfg)
     out = _gate_out(y, z, p, cfg)

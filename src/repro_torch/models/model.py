@@ -17,6 +17,31 @@ gradients); inference callers run them under their own ``no_grad``.
 Every family of the JAX package runs: attention (ATTN / ATTN_LOCAL) and
 Mamba-2 (MAMBA) sequence mixers, MLP and MoE channel mixers, and blocks
 with no channel mixer (mamba2's ``BlockSpec(MAMBA, "none")``).
+
+``mesh`` is None (one device) or a ``repro_torch.dist.sharding.Placed``
+(params placed per their specs: Megatron TP over 'model', FSDP over
+'data'). The entry points also take a plain ``DeviceMesh`` with whole
+params and place them on entry (:func:`place_on_entry`; inference only:
+a differentiable step places its params itself, as the train step
+does); the engine's prefill and decode place only the routed MoE
+weights, since their attention, Mamba and caches take whole weights
+until ROADMAP 18.3. Under a placed mesh the embedding is vocab-sharded (a masked
+local lookup summed over 'model'; the d_model-sharded layout where V does
+not divide), the logits are vocab-sharded, and the loss is a
+vocab-parallel cross-entropy (the max, the sum of exponentials and the
+target logit all-reduced over 'model'; no logits all-gather), which is
+what JAX's one-hot contraction compiles to. :func:`forward` then returns
+the logits all-gathered over 'model'.
+
+Activation rematerialization (:func:`apply_groups`) follows JAX's
+``_maybe_remat``: with ``cfg.remat``, a group scanned over more than one
+repeat (or any group under ``static_loops``) runs each repeat's body
+under ``torch.utils.checkpoint`` when autograd records; ``"full"``
+checkpoints the whole body, ``"save_mixer_outputs"`` the mixer and the
+channel mixer apart, so each block keeps its input and its input plus
+the mixer's output (JAX keeps the body input and the tagged mixer and
+MLP outputs). The FSDP gathers run inside the checkpointed bodies, so the
+backward gathers again. Remat changes memory, never values.
 """
 from __future__ import annotations
 
@@ -24,14 +49,18 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.bridge import flatten_up_to, tree_map, unflatten_as
 from repro_torch.configs.base import (
     ATTN, ATTN_LOCAL, MAMBA, MLP, MOE, ModelConfig)
+from repro_torch.dist import collectives as col
+from repro_torch.dist.sharding import (
+    P, Placed, drop_lead, map_specs, moe_pspecs, param_pspecs, place)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
-from repro_torch.models.layers import norm
+from repro_torch.models.layers import apply_w, is_model, norm, to_input
 from repro_torch.models.mlp import mlp_forward
 from repro_torch.models.moe import moe_forward
 
@@ -191,27 +220,65 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
 def channel_mix(x, p, spec, cfg, mesh=None):
     """x + the block's channel mixer (MLP, MoE, or none)."""
     if spec.mlp == MLP:
-        x = x + mlp_forward(norm(x, p.get("norm2"), cfg), p, cfg)
+        x = x + mlp_forward(norm(x, p.get("norm2"), cfg), p, cfg, mesh)
     elif spec.mlp == MOE:
         x = x + moe_forward(norm(x, p.get("norm2"), cfg), p, cfg, mesh)
     return x
 
 
-def block_forward(x, p, spec, cfg, positions, mesh=None):
+def place_on_entry(params, cfg, mesh, specs_fn=param_pspecs):
+    """(params, mesh) as the layers take them: under a plain
+    ``DeviceMesh`` the whole ``params`` placed per ``specs_fn`` and a
+    ``Placed`` of them; None or a ``Placed`` pass through. Raises where
+    ``params`` require a gradient (a placed leaf's gradient would be this
+    rank's block only)."""
+    if mesh is None or isinstance(mesh, Placed):
+        return params, mesh
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in flatten_up_to(params, params)):
+        raise ValueError("gradients under a plain DeviceMesh: place the "
+                         "params and pass a Placed (the train step does)")
+    specs = specs_fn(params, cfg, mesh)
+    return place(params, specs, mesh), Placed(mesh, specs)
+
+
+def _seq_mix(x, p, spec, cfg, positions, mesh=None):
+    """The block's sequence mixer on norm1(x)."""
     h = norm(x, p.get("norm1"), cfg)
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
-        a = attn.attn_forward(h, p, cfg, positions, window=win)
-    elif spec.mixer == MAMBA:
-        a = mb.mamba_forward(h, p, cfg)
-    else:
-        raise ValueError(spec.mixer)
-    return channel_mix(x + a, p, spec, cfg, mesh)
+        return attn.attn_forward(h, p, cfg, positions, window=win,
+                                 mesh=mesh)
+    if spec.mixer == MAMBA:
+        return mb.mamba_forward(h, p, cfg, mesh=mesh)
+    raise ValueError(spec.mixer)
 
 
-def _embed(params, cfg, batch):
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _ckpt(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def block_forward(x, p, spec, cfg, positions, mesh=None, wrap=_call):
+    """One block; ``wrap`` runs its mixer and its channel mixer (remat's
+    ``save_mixer_outputs`` checkpoints each apart)."""
+    x = x + wrap(_seq_mix, x, p, spec, cfg, positions, mesh)
+    if spec.mlp in (MLP, MOE):
+        x = wrap(channel_mix, x, p, spec, cfg, mesh)
+    return x
+
+
+def _embed(params, cfg, batch, mesh=None):
     if cfg.input_mode == "tokens":
-        x = params["embed"][batch["tokens"]]
+        if mesh is not None:
+            x = _embed_placed(params["embed"], batch["tokens"],
+                              mesh.spec("embed"), mesh.mesh)
+        else:
+            x = params["embed"][batch["tokens"]]
     else:
         x = batch["embeds"].to(torch_dtype(cfg.dtype))
     if cfg.embed_scale:
@@ -219,10 +286,38 @@ def _embed(params, cfg, batch):
     return x
 
 
+def _embed_placed(e, tokens, spec, mesh):
+    """The lookup in a placed embedding: vocab-sharded, each rank looks up
+    the tokens in its rows (zeros elsewhere) and the rows are summed over
+    'model'; d_model-sharded, each rank's columns are all-gathered."""
+    if spec is None:
+        return e[tokens]
+    if is_model(spec[0]):
+        Vl = e.shape[0]
+        idx = tokens - col.axes_index(mesh, "model") * Vl
+        inside = (idx >= 0) & (idx < Vl)
+        x = e[torch.where(inside, idx, 0)] * inside[..., None].to(e.dtype)
+        return col.reduce_from(x, mesh, "model")
+    return col.gather(e[tokens], -1, mesh, "model")
+
+
 def _unembed(params, cfg, x):
     if cfg.tie_embeddings and cfg.input_mode == "tokens":
         return x @ params["embed"].T
     return x @ params["out_head"]
+
+
+def _unembed_placed(params, cfg, x, lay):
+    """(logits, whether they are this rank's vocab columns) under a
+    placed mesh: the head (or the tied embedding's transpose) as a weight
+    of its spec."""
+    if cfg.tie_embeddings and cfg.input_mode == "tokens":
+        spec = lay.spec("embed")
+        w, spec = params["embed"].T, (P(spec[1], spec[0]) if spec else None)
+    else:
+        w, spec = params["out_head"], lay.spec("out_head")
+    x = to_input(x, False, spec, lay.mesh)
+    return apply_w(x, w, spec, lay.mesh), is_model(spec[-1] if spec else None)
 
 
 def _positions(x):
@@ -253,42 +348,159 @@ def iter_layer_params(params, cfg):
                 li += 1
 
 
+def _layer_meshes(mesh, gi, pattern):
+    """Per pattern position, the mesh its blocks take: a ``Placed`` of
+    one repeat's specs under a placed mesh, else ``mesh`` itself."""
+    if mesh is None:
+        return [None] * len(pattern)
+    return [Placed(mesh.mesh, map_specs(drop_lead, s), mesh.local_rows)
+            for s in mesh.specs["groups"][gi]]
+
+
+def _remat_wraps(cfg, reps):
+    """(body wrap, sub-body wrap) of a group per JAX's ``_maybe_remat``
+    conditions (see the module docstring)."""
+    if not (cfg.remat and torch.is_grad_enabled()
+            and ((cfg.scan_layers and reps > 1) or cfg.static_loops)):
+        return _call, _call
+    if cfg.remat_policy == "save_mixer_outputs":
+        return _call, _ckpt
+    return _ckpt, _call
+
+
 def apply_groups(x, params, cfg, positions, mesh=None):
-    """Run all layer groups over x."""
-    for _, spec, lp in iter_layer_params(params, cfg):
-        x = block_forward(x, lp, spec, cfg, positions, mesh)
+    """Run all layer groups over x (each repeat's body rematerialized
+    under JAX's conditions)."""
+    for gi, (pattern, reps) in enumerate(cfg.groups):
+        views = [_unstack(p, reps) for p in params["groups"][gi]]
+        meshes = _layer_meshes(mesh, gi, pattern)
+        wrap, sub = _remat_wraps(cfg, reps)
+
+        # bound now: a checkpointed body runs again in the backward, when
+        # the loop has moved on to later groups
+        def body(xc, r, views=views, pattern=pattern, meshes=meshes,
+                 sub=sub):
+            for pi, spec in enumerate(pattern):
+                xc = block_forward(xc, views[pi][r], spec, cfg, positions,
+                                   meshes[pi], sub)
+            return xc
+
+        for r in range(reps):
+            x = wrap(body, x, r)
     return x
+
+
+def _logits(params, cfg, batch, mesh=None):
+    """(logits, whether they are this rank's vocab columns)."""
+    x = _embed(params, cfg, batch, mesh)
+    positions = _positions(x)
+    x = apply_groups(x, params, cfg, positions, mesh)
+    x = norm(x, params.get("final_norm"), cfg)
+    if mesh is not None:
+        return _unembed_placed(params, cfg, x, mesh)
+    return _unembed(params, cfg, x), False
 
 
 def forward(params, cfg: ModelConfig, batch, mesh=None):
     """Full-sequence forward -> logits (B, S, V). Under a ``mesh`` every
-    rank passes the same global batch and gets the global logits (the MoE
-    layers run their distributed bodies over the mesh)."""
-    x = _embed(params, cfg, batch)
-    positions = _positions(x)
-    x = apply_groups(x, params, cfg, positions, mesh)
-    x = norm(x, params.get("final_norm"), cfg)
-    return _unembed(params, cfg, x)
+    rank passes the same global batch and gets the global logits: every
+    layer runs on its shards and the vocab-sharded logits are
+    all-gathered over 'model'."""
+    params, mesh = place_on_entry(params, cfg, mesh)
+    logits, vlocal = _logits(params, cfg, batch, mesh)
+    if vlocal:
+        logits = col.gather(logits, -1, mesh.mesh, "model")
+    return logits
 
 
 def forward_hidden(params, cfg: ModelConfig, batch, mesh=None):
     """Forward that also returns every block's output hidden state.
     Returns (logits, hidden) with hidden (L+1, B, S, D): the embedding
     output followed by each block's output."""
-    x = _embed(params, cfg, batch)
+    params, mesh = place_on_entry(params, cfg, mesh)
+    x = _embed(params, cfg, batch, mesh)
     positions = _positions(x)
     collected = [x]
-    for _, spec, lp in iter_layer_params(params, cfg):
-        x = block_forward(x, lp, spec, cfg, positions, mesh)
-        collected.append(x)
+    for gi, (pattern, reps) in enumerate(cfg.groups):
+        views = [_unstack(p, reps) for p in params["groups"][gi]]
+        meshes = _layer_meshes(mesh, gi, pattern)
+        for r in range(reps):
+            for pi, spec in enumerate(pattern):
+                x = block_forward(x, views[pi][r], spec, cfg, positions,
+                                  meshes[pi])
+                collected.append(x)
     hidden = torch.stack(collected)
     x = norm(x, params.get("final_norm"), cfg)
-    return _unembed(params, cfg, x), hidden
+    if mesh is None:
+        return _unembed(params, cfg, x), hidden
+    logits, vlocal = _unembed_placed(params, cfg, x, mesh)
+    if vlocal:
+        logits = col.gather(logits, -1, mesh.mesh, "model")
+    return logits, hidden
+
+
+class _VocabParallelLL(torch.autograd.Function):
+    """Per-token log-likelihood ``logits[label] - logsumexp(logits)`` of f32
+    logits sharded over 'model' by vocab (each rank holds a contiguous
+    block): the max, the sum of exponentials and the target logit are
+    all-reduced over 'model'. The incoming gradient is the same on every
+    'model' rank, so each returns its block of (onehot - softmax) * g."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mesh):
+        Vl = logits.shape[-1]
+        idx = labels - col.axes_index(mesh, "model") * Vl
+        inside = (idx >= 0) & (idx < Vl)
+        safe = torch.where(inside, idx, 0)
+        mx = torch.amax(logits, dim=-1)
+        col.all_reduce_max(mx, mesh, "model")
+        e = torch.exp(logits - mx[..., None])
+        se = col.all_reduce(e.sum(dim=-1), mesh, "model")
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        gold = col.all_reduce(torch.where(inside, gold, 0.0), mesh, "model")
+        ctx.save_for_backward(e, se, safe, inside)
+        return gold - (torch.log(se) + mx)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, safe, inside = ctx.saved_tensors
+        grad = e * (-g / se)[..., None]
+        grad.scatter_add_(-1, safe[..., None],
+                          torch.where(inside, g, 0.0)[..., None])
+        return grad, None, None
+
+
+def _log_likelihood(logits, labels, vlocal, mesh):
+    """ll (B, S) of f32 logits, whole or vocab-sharded."""
+    if vlocal:
+        return _VocabParallelLL.apply(logits, labels, mesh.mesh)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return gold - lse
+
+
+def loss_sums(params, cfg, batch, mesh=None):
+    """(the masked sum of -log-likelihoods, the mask's count) of ``batch``
+    as f32 0-d tensors: the two terms of :func:`loss_fn`'s masked mean
+    (an unmasked batch counts every token), which a mesh train step sums
+    over its ranks before dividing."""
+    logits, vlocal = _logits(params, cfg, batch, mesh)
+    ll = _log_likelihood(logits.float(), batch["labels"].long(), vlocal,
+                         mesh)
+    mask = batch.get("mask")
+    if mask is None:
+        return -ll.sum(), torch.tensor(float(ll.numel()), device=ll.device)
+    mask = mask.float()
+    return -(ll * mask).sum(), mask.sum()
 
 
 def loss_fn(params, cfg, batch, mesh=None):
     """Mean next-token cross-entropy (masked mean when ``batch`` has a
     ``mask``)."""
+    params, mesh = place_on_entry(params, cfg, mesh)
+    if mesh is not None:
+        total, count = loss_sums(params, cfg, batch, mesh)
+        return total / torch.clamp(count, min=1.0)
     logits = forward(params, cfg, batch, mesh).float()
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)
@@ -359,20 +571,26 @@ def _apply_groups_cached(x, params, cache, cfg, block_fn, mesh=None):
     """The prefill/decode layer loop: a Python loop over every group's
     repeats (the JAX package's ``lax.scan``), each layer's params and
     cache taken as views of the stacked leaves, so ``block_fn``'s in-place
-    cache writes land in ``cache``. Returns (x, cache)."""
+    cache writes land in ``cache``. ``mesh``: None, or a ``Placed`` of
+    :func:`repro_torch.dist.sharding.moe_pspecs`. Returns (x, cache)."""
     for gi, (pattern, reps) in enumerate(cfg.groups):
         gp, gc = params["groups"][gi], cache["groups"][gi]
+        meshes = _layer_meshes(mesh, gi, pattern)
         for r in range(reps):
             for pi, spec in enumerate(pattern):
                 lp = tree_map(lambda a, r=r: a[r], gp[pi])
                 lc = tree_map(lambda a, r=r: a[r], gc[pi])
-                x, _ = block_fn(x, lp, lc, spec, cfg, mesh)
+                x, _ = block_fn(x, lp, lc, spec, cfg, meshes[pi])
     return x, cache
 
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch, cache, mesh=None):
-    """Process the prompt; returns (last-position logits (B, V), cache)."""
+    """Process the prompt; returns (last-position logits (B, V), cache).
+    ``mesh``: None, a ``DeviceMesh`` (the routed MoE weights placed on
+    entry), or the ``Placed`` of :func:`place_on_entry` with
+    ``moe_pspecs``."""
+    params, mesh = place_on_entry(params, cfg, mesh, moe_pspecs)
     x = _embed(params, cfg, batch)
     positions = _positions(x)
 
@@ -387,7 +605,9 @@ def prefill(params, cfg: ModelConfig, batch, cache, mesh=None):
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, batch, cache, pos, mesh=None):
     """One decode step. batch: tokens (B, 1); pos (B, 1) absolute
-    positions. Returns (logits (B, V), cache)."""
+    positions. Returns (logits (B, V), cache). ``mesh``: as
+    :func:`prefill`'s."""
+    params, mesh = place_on_entry(params, cfg, mesh, moe_pspecs)
     x = _embed(params, cfg, batch)
 
     def block_fn(xc, p, c, spec, cfg, mesh):

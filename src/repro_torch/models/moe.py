@@ -23,10 +23,13 @@ the JAX package:
 
 The JAX package runs the two bodies under ``shard_map``; the port keeps
 its contract explicitly (``repro_torch.dist.collectives``): each rank
-takes its block of ``x`` per JAX's ``x_spec``, slices the (replicated)
-expert weights to its experts or its F columns, runs the body with the
-'model' group's collectives, and all-gathers the global (B, S, D). The
-collectives carry gradients, so a train step runs through the bodies.
+takes its block of ``x`` per JAX's ``x_spec``, runs the body on its
+experts (or its F columns) with the 'model' group's collectives, and
+all-gathers the global (B, S, D). The collectives carry gradients, so a
+train step runs through the bodies. The mesh is a
+``repro_torch.dist.sharding.Placed``: the bodies take the placed local
+expert weights, their FSDP dim gathered over 'data' (the model's entry
+points place whole params under a plain ``DeviceMesh``).
 
 Routing: softmax-then-top-k with renormalized gates (Mixtral convention).
 """
@@ -36,10 +39,9 @@ import math
 
 import torch
 
-from repro_torch.bridge import tree_map
 from repro_torch.dist import collectives as col
 from repro_torch.launch.mesh import axis_sizes
-from repro_torch.models.layers import act_fn
+from repro_torch.models.layers import act_fn, gather_fsdp, is_model
 from repro_torch.models.mlp import mlp_forward
 
 
@@ -81,18 +83,23 @@ def moe_dense(x, p, cfg):
     """x (B, S, D) -> (B, S, D): all experts on all tokens, the routed ones
     gathered and weighted, plus the shared expert's MLP."""
     B, S, D = x.shape
-    T = B * S
-    act = act_fn(cfg.mlp_act)
-    xt = x.reshape(T, D)
-    gates, experts = route(xt, p["router"], cfg.n_experts_per_tok)
-    E, _, F = p["w_gate"].shape
-    step = max(1, CHUNK_ELEMS // (E * F))
-    out = torch.cat([_experts(xt[t:t + step], experts[t:t + step],
-                              gates[t:t + step], p, act)
-                     for t in range(0, T, step)])
+    xt = x.reshape(B * S, D)
+    out = _routed_dense(xt, p, cfg)
     if cfg.n_shared_experts:
         out = out + mlp_forward(xt, p["shared"], cfg)
     return out.reshape(B, S, D)
+
+
+def _routed_dense(xt, p, cfg):
+    """moe_dense's routed part on tokens xt (T, D), in token chunks."""
+    T = xt.shape[0]
+    act = act_fn(cfg.mlp_act)
+    gates, experts = route(xt, p["router"], cfg.n_experts_per_tok)
+    E, _, F = p["w_gate"].shape
+    step = max(1, CHUNK_ELEMS // (E * F))
+    return torch.cat([_experts(xt[t:t + step], experts[t:t + step],
+                               gates[t:t + step], p, act)
+                      for t in range(0, T, step)])
 
 
 # ---------------------------------------------------------------------------
@@ -200,20 +207,12 @@ def _moe_body_tp(xs, router, wg, wu, wd, *, cfg, mesh):
     return col.reduce_from(out, mesh, "model").reshape(B, S, D)
 
 
-def _slice(w, dim, mesh, b_ax):
-    """This rank's block of a replicated weight (tree) along ``dim`` over
-    'model'. Its gradient is summed over the batch axes ``b_ax`` (whose
-    ranks route other rows) and all-gathered over 'model' back to the
-    full weight."""
-    return tree_map(lambda a: col.scatter(col.copy_to(a, mesh, b_ax), dim,
-                                          mesh, "model"), w)
-
-
-def _x_spec(shape, cfg, mesh):
+def _x_spec(shape, cfg, mesh, local_rows: bool = False):
     """shard_map's spec of x (B, S, D) on ``mesh``: (per-dim axes of B and
-    S, whether the a2a body runs, the batch axes ``b_ax``)."""
+    S, whether the a2a body runs, the batch axes ``b_ax``). With
+    ``local_rows`` the rows are this rank's already: no batch axis."""
     n = axis_sizes(mesh)["model"]
-    dp = col.dp_axes(mesh)
+    dp = () if local_rows else col.dp_axes(mesh)
     dp_size = col.axes_size(mesh, dp)
     B, S = shape[:2]
     # small/indivisible batches (long-context B=1) replicate over 'data'
@@ -230,28 +229,65 @@ def _x_spec(shape, cfg, mesh):
     return (b_ax, ()), False, b_ax
 
 
+_EXPERTS = ("w_gate", "w_up", "w_down")
+
+
+def _whole(w, spec, mesh):
+    """A placed weight (tree) gathered whole on every rank: its FSDP dims
+    with the reduce-scattering gather, its 'model' dims with ``gather``
+    (every 'model' rank then computes the same thing with it)."""
+    if isinstance(w, dict):
+        return {k: _whole(v, spec.get(k) if isinstance(spec, dict) else None,
+                          mesh) for k, v in w.items()}
+    w = gather_fsdp(w, spec, mesh)
+    for d, entry in enumerate(spec or ()):
+        if is_model(entry):
+            w = col.gather(w, d, mesh, "model")
+    return w
+
+
+def _tp_from_ep(w, name, mesh):
+    """An expert-parallel placed weight (E_loc, ., .) in the TP body's
+    layout, all E experts and this rank's F columns (a sequence the a2a
+    body cannot split over 'model'). The scatter's backward all-gathers,
+    so the gather's backward sees the same cotangent on every rank."""
+    if isinstance(w, dict):
+        raise NotImplementedError(
+            "CUR expert weights placed expert-parallel in the TP body")
+    w = col.gather(w, 0, mesh, "model")
+    return col.scatter(w, 1 if name == "w_down" else 2, mesh, "model")
+
+
 def moe_forward(x, p, cfg, mesh=None):
     """Dispatch on impl + mesh. x (B, S, D) -> (B, S, D), the same global
-    tensor on every rank of ``mesh`` (a DeviceMesh with a 'model' axis
-    and, optionally, 'data' / 'pod' batch axes)."""
-    if cfg.moe_impl == "dense" or mesh is None:
+    tensor on every rank of ``mesh``: None, or a ``Placed`` of this
+    layer's params (a DeviceMesh with a 'model' axis and, optionally,
+    'data' / 'pod' batch axes; see the module docstring)."""
+    if mesh is None:
         return moe_dense(x, p, cfg)
-    x_spec, a2a, b_ax = _x_spec(x.shape, cfg, mesh)
+    lay, mesh = mesh, mesh.mesh
+    if cfg.moe_impl == "dense":
+        w = {k: _whole(p[k], lay.spec(k), mesh)
+             for k in ("router",) + _EXPERTS}
+        B, S, D = x.shape
+        out = _routed_dense(x.reshape(B * S, D), w, cfg).reshape(B, S, D)
+        if cfg.n_shared_experts:
+            out = out + mlp_forward(x, p["shared"], cfg, lay.sub("shared"))
+        return out
+    x_spec, a2a, b_ax = _x_spec(x.shape, cfg, mesh, lay.local_rows)
     # the router's gradient is partial on every rank (each routes its own
     # tokens, or its F columns' share of the gates' gradient)
-    router = col.copy_to(p["router"], mesh, b_ax + ("model",))
+    router = gather_fsdp(p["router"], lay.spec("router"), mesh)
+    router = col.copy_to(router, mesh, b_ax + ("model",))
+    w = [gather_fsdp(p[k], lay.spec(k), mesh) for k in _EXPERTS]
+    if not a2a and is_model((lay.spec("w_gate") or (None,))[0]):
+        w = [_tp_from_ep(a, k, mesh) for a, k in zip(w, _EXPERTS)]
     if a2a:
         n = axis_sizes(mesh)["model"]
-        w = [_slice(p[k], 0, mesh, b_ax)
-             for k in ("w_gate", "w_up", "w_down")]
 
         def body(xs):
             return _moe_body_a2a(xs, router, *w, cfg=cfg, n=n, mesh=mesh)
     else:
-        w = [_slice(p["w_gate"], 2, mesh, b_ax),
-             _slice(p["w_up"], 2, mesh, b_ax),
-             _slice(p["w_down"], 1, mesh, b_ax)]
-
         def body(xs):
             xs = col.copy_to(xs, mesh, "model")
             return _moe_body_tp(xs, router, *w, cfg=cfg, mesh=mesh)
@@ -264,5 +300,5 @@ def moe_forward(x, p, cfg, mesh=None):
         if axes:
             out = col.gather(out, d, mesh, axes)
     if cfg.n_shared_experts:
-        out = out + mlp_forward(x, p["shared"], cfg)
+        out = out + mlp_forward(x, p["shared"], cfg, lay.sub("shared"))
     return out

@@ -10,7 +10,13 @@ float32 tensors, as JAX computes them, not Python doubles; ``torch.round``
 rounds half to even like ``jnp.round``, so the int8 codes are JAX's.
 
 The update is functional (new tensors, the inputs untouched), like the
-JAX one; it runs under ``torch.no_grad``.
+JAX one; it runs under ``torch.no_grad``. On placed params (``mesh``, a
+``repro_torch.dist.sharding.Placed``: each rank holds its shards, which
+GSPMD does for JAX) every rank updates its own shards: the global norm
+sums each leaf's squares over the axes the leaf is sharded on (a leaf
+replicated over an axis counts once), and an int8 row scale over a
+sharded last axis is the max over that axis's ranks, so the codes are
+JAX's.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch.bridge import flatten_up_to, unflatten_as
 from repro_torch.configs.base import OptimizerConfig
+from repro_torch.dist import collectives as col
 
 
 # ---------------------------------------------------------------------------
@@ -49,10 +56,28 @@ def make_schedule(cfg: OptimizerConfig):
 # int8 row-wise quantization for moment states
 # ---------------------------------------------------------------------------
 
-def _q8(x, block: int = 0):
+def _rowmax(t):
+    return torch.amax(t, dim=-1, keepdim=True)
+
+
+def sharded_rowmax(mesh, spec):
+    """The row max (over the last dim, kept) of a leaf of ``spec`` whose
+    last dim may be sharded: the local max, then the max over the ranks
+    of that dim's axes (``_rowmax`` when it is whole)."""
+    axes = col.entry_axes(spec[-1] if spec else None)
+    if not axes:
+        return _rowmax
+
+    def rowmax(t):
+        return col.all_reduce_max(_rowmax(t), mesh, axes)
+    return rowmax
+
+
+def _q8(x, block: int = 0, rowmax=_rowmax):
     """Row-wise (last-dim absmax) int8 quantization for the FIRST moment.
-    Codes keep the param's shape; scales have shape x.shape[:-1]."""
-    scale = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    Codes keep the param's shape; scales have shape x.shape[:-1].
+    ``rowmax`` takes the row max (:func:`sharded_rowmax` on a shard)."""
+    scale = rowmax(torch.abs(x))
     q = torch.round(x / torch.clamp(scale, min=1e-30) * 127.0)
     return q.to(torch.int8), scale[..., 0]
 
@@ -61,11 +86,11 @@ def _dq8(q, scale, shape=None):
     return q.to(torch.float32) * (scale[..., None] / 127.0)
 
 
-def _q8_sqrt(v):
+def _q8_sqrt(v, rowmax=_rowmax):
     """Second-moment quantization in sqrt space (quadratic code): linear
     absmax codes flush small v entries to zero and m/sqrt(v) explodes.
     code = sqrt(v/vmax)*127."""
-    scale = torch.amax(v, dim=-1, keepdim=True)            # vmax per row
+    scale = rowmax(v)                                      # vmax per row
     q = torch.round(torch.sqrt(v / torch.clamp(scale, min=1e-30)) * 127.0)
     return q.to(torch.int8), scale[..., 0]
 
@@ -81,11 +106,11 @@ def _sqrt_noise_floor(scale):
     return torch.sqrt(torch.clamp(scale, min=0.0))[..., None] / 254.0
 
 
-def q8_rowwise(x):
+def q8_rowwise(x, rowmax=_rowmax):
     """Per-row absmax int8 quantization -> (codes, scales): the 8-bit
     format shared by the optimizer moments and the error-feedback
     gradient compression (``repro_torch.dist.compression``)."""
-    return _q8(x.to(torch.float32))
+    return _q8(x.to(torch.float32), rowmax=rowmax)
 
 
 def dq8_rowwise(q, scale):
@@ -145,19 +170,27 @@ class AdamW:
                 "moments": moments}
 
     @torch.no_grad()
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, mesh=None):
+        """One step. ``mesh``: a ``Placed`` of the params when they (and
+        ``grads`` and ``state``) are this rank's shards."""
         cfg = self.cfg
         step = state["step"]
         lr = make_schedule(cfg)(step)
         flat_p = flatten_up_to(params, params)
         flat_g = flatten_up_to(params, grads)
         flat_m = flatten_up_to(params, state["moments"])
+        flat_s = (flatten_up_to(params, mesh.specs) if mesh is not None
+                  else [None] * len(flat_p))
 
         # global-norm clip over the live leaves, summed in leaf order
-        live = [g for p, g in zip(flat_p, flat_g) if p is not None]
-        gnorm = torch.sqrt(torch.as_tensor(
-            sum(torch.sum(torch.square(g.to(torch.float32)))
-                for g in live), dtype=torch.float32))
+        if mesh is None:
+            live = [g for p, g in zip(flat_p, flat_g) if p is not None]
+            sq = torch.as_tensor(
+                sum(torch.sum(torch.square(g.to(torch.float32)))
+                    for g in live), dtype=torch.float32)
+        else:
+            sq = _sharded_sq_sum(flat_p, flat_g, flat_s, mesh.mesh)
+        gnorm = torch.sqrt(sq)
         clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                            max=1.0)
 
@@ -165,9 +198,11 @@ class AdamW:
         bc1 = 1.0 - torch.pow(cfg.b1, stepf)
         bc2 = 1.0 - torch.pow(cfg.b2, stepf)
 
-        def upd(p, g, mom):
+        def upd(p, g, mom, spec):
             if p is None:
                 return None, None
+            rowmax = (_rowmax if mesh is None
+                      else sharded_rowmax(mesh.mesh, spec))
             g = g.to(torch.float32) * clip
             noise = 0.0
             if cfg.quantized_state:
@@ -180,19 +215,36 @@ class AdamW:
             mh = m / bc1
             vh = v / bc2
             if cfg.quantized_state:
-                noise = _sqrt_noise_floor(
-                    torch.amax(vh, dim=-1, keepdim=True)[..., 0])
+                noise = _sqrt_noise_floor(rowmax(vh)[..., 0])
             delta = mh / (torch.sqrt(vh) + noise + cfg.eps)
             if p.dim() >= 2:                     # decoupled weight decay
                 delta = delta + cfg.weight_decay * p.to(torch.float32)
             new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
             if cfg.quantized_state:
-                mq, ms = _q8(m, cfg.state_block)
-                vq, vs = _q8_sqrt(v)
+                mq, ms = _q8(m, cfg.state_block, rowmax)
+                vq, vs = _q8_sqrt(v, rowmax)
                 return new_p, {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
             return new_p, {"m": m, "v": v}
 
-        out = [upd(p, g, m) for p, g, m in zip(flat_p, flat_g, flat_m)]
+        out = [upd(*a) for a in zip(flat_p, flat_g, flat_m, flat_s)]
         new_params = unflatten_as(params, [o[0] for o in out])
         new_moments = unflatten_as(params, [o[1] for o in out])
         return new_params, {"step": step + 1, "moments": new_moments}
+
+
+def _sharded_sq_sum(flat_p, flat_g, flat_s, mesh):
+    """The sum of squares of every live gradient leaf, each summed over
+    the axes its spec shards it on: the leaves are grouped by those axes,
+    and each group's sum (in leaf order) is all-reduced over them once."""
+    groups = {}
+    for p, g, spec in zip(flat_p, flat_g, flat_s):
+        if p is None:
+            continue
+        groups.setdefault(col.spec_axes(spec), []).append(
+            torch.sum(torch.square(g.to(torch.float32))))
+    total = torch.zeros((), dtype=torch.float32,
+                        device=next(iter(groups.values()))[0].device)
+    for axes, parts in groups.items():
+        part = torch.stack(parts).sum()
+        total = total + (col.all_reduce(part, mesh, axes) if axes else part)
+    return total

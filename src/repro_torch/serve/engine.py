@@ -6,7 +6,9 @@ The JAX package jit-compiles its two step functions and caches them per
 (config, mesh); the port has no jit, so ``make_prefill`` /
 ``make_serve_step`` return the plain closures. Under a ``mesh`` every
 rank passes the same prompts and gets the same tokens (the MoE layers run
-their distributed bodies; decode's S == 1 takes the expert-TP body).
+their distributed bodies on their placed experts; decode's S == 1 takes
+the expert-TP body): :func:`generate` places the routed MoE weights once,
+a bare step function at every call (``models.model.prefill``).
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import decode_step, init_cache, prefill
+from repro_torch.dist.sharding import moe_pspecs
+from repro_torch.models.model import (
+    decode_step, init_cache, place_on_entry, prefill)
 
 
 def make_serve_step(cfg: ModelConfig, mesh=None):
@@ -60,6 +64,7 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, n_new: int,
     dev = prompts.device
     B, S = prompts.shape
     cache = init_cache(cfg, B, S + n_new, dev)
+    params, mesh = place_on_entry(params, cfg, mesh, moe_pspecs)
     pf, st = make_prefill(cfg, mesh), make_serve_step(cfg, mesh)
     logits, cache = pf(params, cache, {"tokens": prompts})
     gen = None

@@ -1,16 +1,18 @@
 """Evaluation helpers: perplexity over held-out batches, and token
-accuracy (under a ``mesh``, every rank passes the same batches)."""
+accuracy (under a ``mesh``, every rank passes the same batches; whole
+params under a plain ``DeviceMesh`` are placed once)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from repro_torch.models.model import forward, loss_fn
+from repro_torch.models.model import forward, loss_fn, place_on_entry
 
 
 @torch.no_grad()
 def perplexity(params, cfg, batches, mesh=None) -> float:
+    params, mesh = place_on_entry(params, cfg, mesh)
     tot, n = 0.0, 0
     for b in batches:
         tot += float(loss_fn(params, cfg, b, mesh))
@@ -20,6 +22,7 @@ def perplexity(params, cfg, batches, mesh=None) -> float:
 
 @torch.no_grad()
 def token_accuracy(params, cfg, batches, mesh=None) -> float:
+    params, mesh = place_on_entry(params, cfg, mesh)
     correct, total = 0, 0
     for b in batches:
         pred = torch.argmax(forward(params, cfg, b, mesh), dim=-1)

@@ -47,6 +47,57 @@ EF_TRAIN = {"olmo-ef-dm": ("olmo", "dm")}
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=8)
 STEPS, TRAIN_B, TRAIN_S = 3, 4, 32
 
+# the mesh step's loss and gradients against JAX's GSPMD step: name ->
+# (mesh, microbatch, mask kind, B, model, fsdp). "random" masks keep a
+# different share of each row (one row none, one row all), "ragged" ones
+# a prefix of each row (one row empty). micro 4 on dm: B_local 4 <= micro
+# < B 8; micro 3 does not divide over data 2; micro 2 on pdm is below its
+# 4 batch ranks. jamba's case holds Mamba-2 on local heads (8 over 4), its
+# attention's gather fallback and a dense-impl MoE, all FSDP.
+MASKED = {
+    "masked-dm": ("dm", 0, "random", 8, "olmo", False),
+    "ragged-pdm": ("pdm", 0, "ragged", 8, "olmo", False),
+    "micro-dm": ("dm", 4, "ragged", 8, "olmo", False),
+    "micro-pdm": ("pdm", 4, "random", 8, "olmo", False),
+    "micro-odd-dm": ("dm", 3, "ragged", 6, "olmo", False),
+    "micro-unmasked-pdm": ("pdm", 2, None, 8, "olmo", False),
+    "jamba-fsdp-dm": ("dm", 0, "ragged", 8, "jamba", True),
+}
+
+# placed train steps: name -> (model, mesh, fsdp, int8 moments). Each
+# rank holds its shards of the params and moments; after PLACED_STEPS
+# steps they are held to the slices of JAX's device at the same mesh
+# position. olmo runs with fsdp off and on on both meshes (with f32 and
+# int8 moments). "olmo-gqa" has 2 kv heads (model 4 cuts through them: the
+# gather fallback); "cur" is olmo with wq folded {CU, R}, w_gate in
+# healing form (column-parallel), wo folded and w_down in healing form
+# (row-parallel: the rank-space all-reduce).
+PLACED = {
+    "olmo-dm": ("olmo", "dm", False, False),
+    "olmo-fsdp-pdm": ("olmo", "pdm", True, False),
+    "int8-fsdp-dm": ("olmo", "dm", True, True),
+    "int8-pdm": ("olmo", "pdm", False, True),
+    "mixtral-a2a-fsdp-dm": ("mixtral-a2a", "dm", True, False),
+    "mixtral-a2a-pdm": ("mixtral-a2a", "pdm", False, False),
+    "mixtral-tp-fsdp-dm": ("mixtral-tp", "dm", True, False),
+    "cur-fsdp-dm": ("cur", "dm", True, False),
+    "cur-pdm": ("cur", "pdm", False, False),
+    "gqa-dm": ("olmo-gqa", "dm", False, False),
+}
+PLACED_STEPS = 2
+# the placed models beyond MODELS: name -> (arch, overrides of its SMOKE)
+PLACED_MODELS = {
+    "cur": MODELS["olmo"],
+    "olmo-gqa": ("olmo-1b", dict(MODELS["olmo"][1], n_kv_heads=2)),
+    "jamba": ("jamba-v0.1-52b", {}),      # Mamba-2 + attention + MoE
+}
+CUR_RANK = 8
+# the placed case whose kept tensors are counted, and the restore case: a
+# checkpoint of olmo's params (f32 and a bf16 copy) read into the fsdp
+# layout on dm
+BYTES_CASE = "cur-fsdp-dm"
+RESTORE = ("olmo", "dm")
+
 # distribute(): (mesh, spec, global shape)
 DIST_SPECS = {
     "data-rows": ("dm", ("data", None), (8, 6)),
@@ -100,6 +151,18 @@ def train_batches(vocab, seed=0):
     return out
 
 
+# a q8 row scale over a last dim sharded over 'model' (and rows over
+# 'data'): the codes and scales of each rank's block against JAX's
+# quantizer on the whole tensor
+Q8_SPEC = ("data", "model")
+
+
+def q8_inputs():
+    rng = np.random.default_rng(15)
+    return (rng.standard_normal((6, 64)) * np.exp(rng.standard_normal(
+        (6, 1)))).astype(np.float32)
+
+
 def psum_inputs():
     return np.random.default_rng(11).standard_normal(
         (WORLD, 64)).astype(np.float32)
@@ -114,3 +177,53 @@ def gen_inputs(vocab):
     rng = np.random.default_rng(13)
     return (rng.integers(0, vocab, (GEN["B"], GEN["S"])).astype(np.int32),
             rng.integers(0, vocab, (GEN["B"], GEN["fwd_S"])).astype(np.int32))
+
+
+def model_args(model):
+    """(arch, overrides) of a MODELS or PLACED_MODELS entry."""
+    return MODELS[model] if model in MODELS else PLACED_MODELS[model]
+
+
+def cur_params(params):
+    """olmo's params (numpy) with its four CUR targets replaced by factors
+    drawn from a seed: wq and wo folded {CU, R}, w_gate and w_down in
+    healing form {C, U0, dU, R} (stacked over the group's repeats)."""
+    rng = np.random.default_rng(14)
+    r = CUR_RANK
+
+    def a(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(shape[-2])).astype(
+            np.float32)
+
+    out = {k: v for k, v in params.items() if k != "groups"}
+    blocks = []
+    for blk in params["groups"][0]:
+        blk = dict(blk)
+        for name, form in (("wq", "folded"), ("wo", "folded"),
+                           ("w_gate", "heal"), ("w_down", "heal")):
+            reps, m, n = blk[name].shape
+            if form == "folded":
+                blk[name] = {"CU": a(reps, m, r), "R": a(reps, r, n)}
+            else:
+                blk[name] = {"C": a(reps, m, r), "U0": a(reps, r, r),
+                             "dU": 0.1 * a(reps, r, r), "R": a(reps, r, n)}
+        blocks.append(blk)
+    out["groups"] = [blocks]
+    return out
+
+
+def masked_batch(name, vocab):
+    """tokens, labels and (unless the case has none) a float32 mask."""
+    kind, B = MASKED[name][2:4]
+    rng = np.random.default_rng(20 + sorted(MASKED).index(name))
+    toks = rng.integers(0, vocab, (B, TRAIN_S + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if kind == "random":
+        keep = np.linspace(0.0, 1.0, B)[:, None]
+        out["mask"] = (rng.random((B, TRAIN_S)) < keep).astype(np.float32)
+    elif kind == "ragged":
+        lens = rng.integers(1, TRAIN_S + 1, B)
+        lens[0] = 0
+        out["mask"] = (np.arange(TRAIN_S)[None] < lens[:, None]).astype(
+            np.float32)
+    return out

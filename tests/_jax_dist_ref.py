@@ -6,11 +6,15 @@
 Runs every mesh case of tests/_dist_cases.py through the JAX package
 (``moe_forward`` and its per-device dispatch under ``shard_map``,
 ``compressed_psum``, ``NamedSharding``'s device slices, ``forward`` and
-``generate`` on a mesh) and pickles the results."""
+``generate`` on a mesh; the masked / micro-batched gradients and the
+placed train steps under ``jax.jit(..., in_shardings=(p_sh, o_sh,
+b_sh))``, as ``launch/dryrun.py`` lowers its train cells; a sharded
+``CheckpointManager.restore``) and pickles the results."""
 import math
 import os
 import pickle
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -21,11 +25,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _dist_cases as dc  # noqa: E402
 
 from repro.configs import get_smoke  # noqa: E402
+from repro.configs.base import OptimizerConfig, ShapeConfig  # noqa: E402
+from repro.dist import sharding as shd  # noqa: E402
+from repro.dist.checkpoint import CheckpointManager  # noqa: E402
 from repro.dist.compression import compressed_psum  # noqa: E402
-from repro.models.model import forward  # noqa: E402
+from repro.models.model import forward, loss_fn  # noqa: E402
 from repro.models.moe import (  # noqa: E402
     _rank_within_expert, moe_dense, moe_forward, route, shard_map)
+from repro.optim.adamw import AdamW  # noqa: E402
 from repro.serve.engine import generate  # noqa: E402
+from repro.train import train_loop as jloop  # noqa: E402
 
 
 def mesh_of(name):
@@ -77,6 +86,137 @@ def dispatch(name, cfg, mesh, x, router):
     return [np.asarray(a) for a in jax.jit(fn)(x)]
 
 
+def cfg_of(model, **over):
+    arch, base = dc.model_args(model)
+    return get_smoke(arch).replace(**base, **over)
+
+
+def batch_sharding(cfg, batch, mesh):
+    """NamedShardings of a batch per ``batch_pspecs`` (a mask like the
+    labels)."""
+    B, S = batch["labels"].shape
+    spec = shd.batch_pspecs(cfg, ShapeConfig("b", S, B, "train"),
+                            mesh)["labels"]
+    return {k: NamedSharding(mesh, spec or P()) for k in batch}
+
+
+def position_of(mesh):
+    return {d: i for i, d in enumerate(mesh.devices.flat)}
+
+
+def slices(tree, mesh):
+    """Per leaf (``jax.tree.leaves`` order), each device's (start, stop)
+    per dim, in mesh-position order."""
+    out = []
+    for a in jax.tree.leaves(tree):
+        idx = a.sharding.devices_indices_map(a.shape)
+        out.append([[(sl.start or 0, a.shape[d] if sl.stop is None
+                      else sl.stop) for d, sl in enumerate(idx[dev])]
+                    for dev in mesh.devices.flat])
+    return out
+
+
+def compile_all(jobs):
+    """{name: (jitted fn, args)} -> {name: compiled}, lowered and compiled
+    on threads (XLA compiles outside the GIL)."""
+    def one(job):
+        fn, args = job
+        return fn.lower(*args).compile()
+    with ThreadPoolExecutor(4) as pool:
+        return dict(zip(jobs, pool.map(one, jobs.values())))
+
+
+def repair(inp):
+    """Loss and gradients of JAX's grads function (the train step's) on
+    the masked / ragged / micro-batched batches."""
+    jobs = {}
+    for name, (mname, micro, _, _, model, fsdp) in dc.MASKED.items():
+        params = jax.tree.map(jnp.asarray, inp["grad_params"][model])
+        cfg = cfg_of(model, fsdp=fsdp)
+        mesh = mesh_of(mname)
+        batch = {k: jnp.asarray(v) for k, v in
+                 dc.masked_batch(name, cfg.vocab_size).items()}
+        p_sh = shd.to_named(shd.param_pspecs(params, cfg, mesh), mesh)
+        fn = jloop._make_grads_fn(
+            lambda p, b, cfg=cfg, mesh=mesh: loss_fn(p, cfg, b, mesh), micro)
+        jobs[name] = (jax.jit(fn, in_shardings=(
+            p_sh, batch_sharding(cfg, batch, mesh))), (params, batch))
+        one = jloop._make_grads_fn(
+            lambda p, b, cfg=cfg: loss_fn(p, cfg, b), micro)
+        jobs[name + "/one"] = (jax.jit(one), (params, batch))
+    out = {}
+    compiled = compile_all(jobs)
+    for name in dc.MASKED:
+        l, g = compiled[name](*jobs[name][1])
+        _, g1 = compiled[name + "/one"](*jobs[name][1])
+        leaves = [np.asarray(x) for x in jax.tree.leaves(g)]
+        # JAX's own gap between its GSPMD and one-device gradients
+        gap = [float(np.abs(a - np.asarray(b)).max()
+                     / (np.abs(a).max() + 1e-12))
+               for a, b in zip(leaves, jax.tree.leaves(g1))]
+        out[name] = (float(l), leaves, gap,
+                     [jax.tree_util.keystr(k) for k, _ in
+                      jax.tree_util.tree_leaves_with_path(g)])
+    return out
+
+
+def placed(inp):
+    """PLACED_STEPS steps of each placed case under jit with the params,
+    moments and batch placed per their specs: the losses, the final
+    params and state (global arrays) and their device slices."""
+    jobs, runs = {}, {}
+    for name, (model, mname, fsdp, quant) in dc.PLACED.items():
+        mesh = mesh_of(mname)
+        cfg = cfg_of(model, fsdp=fsdp)
+        params = jax.tree.map(jnp.asarray, inp["placed_params"][model])
+        opt = AdamW(OptimizerConfig(**dc.OPT, quantized_state=quant))
+        state = opt.init(params)
+        p_sh = shd.to_named(shd.param_pspecs(params, cfg, mesh), mesh)
+        o_sh = shd.to_named(shd.opt_state_pspecs(state, cfg, mesh), mesh)
+        batches = [{k: jnp.asarray(v) for k, v in b.items()}
+                   for b in inp["placed_batches"][model]]
+        step = jax.jit(jloop.make_train_step(cfg, opt, None, mesh),
+                       in_shardings=(p_sh, o_sh, batch_sharding(
+                           cfg, batches[0], mesh)),
+                       out_shardings=(p_sh, o_sh, None))
+        p, s = jax.device_put(params, p_sh), jax.device_put(state, o_sh)
+        jobs[name] = (step, (p, s, batches[0]))
+        runs[name] = (mesh, p, s, batches)
+    out = {}
+    for name, step in compile_all(jobs).items():
+        mesh, p, s, batches = runs[name]
+        losses = []
+        for b in batches:
+            p, s, l = step(p, s, b)
+            losses.append(float(l))
+        tree = {"params": p, "state": s}
+        out[name] = {"losses": losses, "slices": slices(tree, mesh),
+                     "paths": [jax.tree_util.keystr(k) for k, _ in
+                               jax.tree_util.tree_leaves_with_path(tree)],
+                     "leaves": [np.asarray(a) for a in jax.tree.leaves(tree)]}
+    return out
+
+
+def restore(inp):
+    """Each device's shard of every leaf of a sharded restore."""
+    model, mname = dc.RESTORE
+    mesh = mesh_of(mname)
+    cfg = cfg_of(model, fsdp=True)
+    params = inp["params"][model]
+    specs = shd.param_pspecs(params, cfg, mesh)
+    tmpl = {"f32": params, "bf16": params}
+    sh = shd.to_named({"f32": specs, "bf16": specs}, mesh)
+    tmpl = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype),
+                        tmpl)
+    _, tree = CheckpointManager(inp["ckpt_dir"]).restore(tmpl, sh)
+    pos = position_of(mesh)
+    out = []
+    for a in jax.tree.leaves(tree):
+        shards = sorted(a.addressable_shards, key=lambda x: pos[x.device])
+        out.append([np.asarray(x.data.astype(jnp.float32)) for x in shards])
+    return out
+
+
 def main(inp_path, out_path):
     with open(inp_path, "rb") as f:
         inp = pickle.load(f)
@@ -118,6 +258,9 @@ def main(inp_path, out_path):
             params, {"tokens": jnp.asarray(fwd_tokens)}))
     out["generate"] = np.asarray(generate(
         params, cfg, jnp.asarray(prompts), dc.GEN["new"], mesh=mesh).tokens)
+    out["repair"] = repair(inp)
+    out["placed"] = placed(inp)
+    out["restore"] = restore(inp)
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 

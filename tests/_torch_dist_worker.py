@@ -34,6 +34,8 @@ def _tree_np(tree):
 def _moe(meshes):
     from repro_torch.configs import get_smoke
     from repro_torch.dist.collectives import block
+    from repro_torch.dist.sharding import (
+        Placed, drop_lead, map_specs, param_pspecs, place)
     from repro_torch.models import moe
     base = get_smoke("mixtral-8x22b")
     out, disp = {}, {}
@@ -43,8 +45,14 @@ def _moe(meshes):
         x, p = dc.moe_inputs(name)
         x = torch.from_numpy(x)
         p = {k: torch.from_numpy(v) for k, v in p.items()}
+        # the layer's specs: those of a one-layer stacked tree, less the
+        # repeats dim
+        stacked = {"groups": [[{k: v[None] for k, v in p.items()}]]}
+        lay = Placed(mesh, map_specs(drop_lead, param_pspecs(
+            stacked, cfg, mesh)["groups"][0][0]))
         with torch.no_grad():
-            out[name] = _np(moe.moe_forward(x, p, cfg, mesh))
+            out[name] = _np(moe.moe_forward(x, place(p, lay.specs, mesh),
+                                            cfg, lay))
         # this rank's block of x (moe_forward's spec) and its dispatch
         spec, a2a, _ = moe._x_spec(x.shape, cfg, mesh)
         xs = x
@@ -100,6 +108,103 @@ def _train(meshes, inp):
     return res
 
 
+def _cfg(model, **over):
+    from repro_torch.configs import get_smoke
+    arch, base = dc.model_args(model)
+    return get_smoke(arch).replace(**base, **over)
+
+
+def _batch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def _repair(meshes, inp):
+    """The masked / ragged / micro-batched cases: the loss and the whole
+    gradients of the mesh step's grads function (replicated params)."""
+    from repro_torch import bridge
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train import train_loop as tl
+    out = {}
+    for name, (mname, micro, _, _, model, fsdp) in dc.MASKED.items():
+        cfg = _cfg(model, fsdp=fsdp)
+        params = bridge.to_torch(inp["grad_params"][model], "cpu")
+        fn = tl.make_grads_fn(cfg, TrainConfig(microbatch=micro),
+                              meshes[mname])
+        l, g = fn(params, _batch(dc.masked_batch(name, cfg.vocab_size)))
+        out[name] = (float(l), _tree_np(g))
+    return out
+
+
+def _placed(meshes, inp):
+    """Each placed case: the caller places the params, AdamW.init makes
+    the moments on the shards, PLACED_STEPS steps run on them. Returns
+    the losses, this rank's final shards and the bytes its step keeps."""
+    from repro_torch import bridge
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.dist import tree_flatten
+    from repro_torch.dist.sharding import Placed, param_pspecs, place
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import train_loop as tl
+    out = {}
+    for name, (model, mname, fsdp, quant) in dc.PLACED.items():
+        mesh = meshes[mname]
+        cfg = _cfg(model, fsdp=fsdp)
+        whole = bridge.to_torch(inp["placed_params"][model], "cpu")
+        specs = param_pspecs(whole, cfg, mesh)
+        params = place(whole, specs, mesh)
+        del whole
+        opt = AdamW(OptimizerConfig(**dc.OPT, quantized_state=quant))
+        state = opt.init(params)
+        step = tl.make_train_step(cfg, opt, mesh=Placed(mesh, specs))
+        losses = []
+        for b in inp["placed_batches"][model]:
+            params, state, l = step(params, state, _batch(b))
+            losses.append(float(l))
+        kept = tree_flatten({"params": params, "state": state})
+        out[name] = {"losses": losses,
+                     "leaves": [_np(t) for t in kept],
+                     "bytes": sum(t.numel() * t.element_size()
+                                  for t in kept)}
+    return out
+
+
+def _evaluate(meshes, inp):
+    """perplexity and token_accuracy of olmo on its placed shards (fsdp,
+    dm) and on the whole params without a mesh, on the first batch."""
+    from repro_torch import bridge
+    from repro_torch.dist.sharding import Placed, param_pspecs, place
+    from repro_torch.train.evaluate import perplexity, token_accuracy
+    mesh = meshes["dm"]
+    cfg = _cfg("olmo", fsdp=True)
+    whole = bridge.to_torch(inp["params"]["olmo"], "cpu")
+    specs = param_pspecs(whole, cfg, mesh)
+    lay = Placed(mesh, specs)
+    placed = place(whole, specs, mesh)
+    batches = [_batch(inp["batches"]["olmo"][0])]
+    return {"placed": (perplexity(placed, cfg, batches, lay),
+                       token_accuracy(placed, cfg, batches, lay)),
+            "whole": (perplexity(whole, cfg, batches),
+                      token_accuracy(whole, cfg, batches))}
+
+
+def _restore(meshes, inp):
+    """This rank's blocks of a sharded restore of the test's checkpoint."""
+    from repro_torch import bridge
+    from repro_torch.dist import CheckpointManager, tree_flatten
+    from repro_torch.dist.checkpoint import TensorSpec
+    from repro_torch.dist.sharding import param_pspecs, to_named
+    model, mname = dc.RESTORE
+    mesh = meshes[mname]
+    params = bridge.to_torch(inp["params"][model], "cpu")
+    specs = param_pspecs(params, _cfg(model, fsdp=True), mesh)
+    tmpl = {"f32": params, "bf16": params}
+    tmpl = bridge.tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype),
+                           tmpl)
+    _, tree = CheckpointManager(inp["ckpt_dir"]).restore(
+        tmpl, shardings=to_named({"f32": specs, "bf16": specs}, mesh))
+    return [_np(t.float()) for t in tree_flatten(tree)]
+
+
 def _generate(meshes, inp):
     from repro_torch import bridge
     from repro_torch.configs import get_smoke
@@ -134,10 +239,23 @@ def _psum(meshes):
     resid = {"w": torch.zeros_like(g)}
     acc = torch.zeros_like(g)
     for _ in range(dc.EF_ROUNDS):
-        mean, resid = ef_psum_grads({"w": g}, resid, mesh, ("data", "model"))
-        acc += mean["w"]
-    out["ef_mean"] = _np(acc / dc.EF_ROUNDS)
+        total, resid = ef_psum_grads({"w": g}, resid, mesh,
+                                     ("data", "model"))
+        acc += total["w"]
+    out["ef_mean"] = _np(acc / (dc.EF_ROUNDS * dc.WORLD))
     return out
+
+
+def _q8_sharded(meshes):
+    """int8 codes and row scales of this rank's block, the row max taken
+    over the ranks that share the row."""
+    from repro_torch.dist.sharding import P, local_shard
+    from repro_torch.optim.adamw import _q8, _q8_sqrt, sharded_rowmax
+    mesh = meshes["dm"]
+    spec = P(*dc.Q8_SPEC)
+    x = local_shard(torch.from_numpy(dc.q8_inputs()), spec, mesh)
+    rowmax = sharded_rowmax(mesh, spec)
+    return [_np(a) for a in _q8(x, 0, rowmax) + _q8_sqrt(x * x, rowmax)]
 
 
 def _distribute(meshes):
@@ -185,9 +303,14 @@ def _rank(rank, inp_path, outdir):
         res["moe"], res["dispatch"] = _moe(meshes)
         res["psum"] = _psum(meshes)
         res["slices"] = _distribute(meshes)
+        res["q8"] = _q8_sharded(meshes)
         res["train"] = _train(meshes, inp)
         res.update(_generate(meshes, inp))
         res["recovery"] = _recovery()
+        res["repair"] = _repair(meshes, inp)
+        res["placed"] = _placed(meshes, inp)
+        res["restore"] = _restore(meshes, inp)
+        res["evaluate"] = _evaluate(meshes, inp)
         with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:

@@ -254,7 +254,7 @@ def test_jax_written_checkpoint_restores_in_the_port(cured, tmp_path):
     jckpt.CheckpointManager(str(tmp_path)).save(5, jtree)
     jckpt.save_tree_template(str(tmp_path / "template.json"), jtree)
     tmpl = load_tree_template(str(tmp_path / "template.json"))
-    step, restored = CheckpointManager(str(tmp_path)).restore(tmpl, "cpu")
+    step, restored = CheckpointManager(str(tmp_path)).restore(tmpl, device="cpu")
     assert step == 5 and restored["none"] is None
     assert _equal(restored, ttree)
 

@@ -357,3 +357,134 @@ def test_port_stand_ins_hold_no_memory():
             x, torch.Tensor))]
     assert leaves and all(t.is_meta for t in leaves)
     assert tsp.count_struct_params(tp) > 10**12
+
+
+# ---------------------------------------------------------------------------
+# the serving placement, CUR dispatch under a mesh, placement on entry
+# ---------------------------------------------------------------------------
+
+def test_moe_pspecs_keep_only_the_routed_experts():
+    """moe_pspecs shards the router and the routed experts as
+    param_pspecs does and replicates every other leaf (attention,
+    embedding, head, norms, a shared expert)."""
+    cfg = get_smoke("mixtral-8x22b")
+    _, tm = _meshes("16x16")
+    params = tsp.param_specs(cfg)
+    full = tshd.param_pspecs(params, cfg, tm)
+    moe = tshd.moe_pspecs(params, cfg, tm)
+    for gi, group in enumerate(full["groups"]):
+        for pi, specs in enumerate(group):
+            for k, spec in specs.items():
+                want = spec if k in ("router", "w_gate", "w_up",
+                                     "w_down") else tshd.map_specs(
+                                         lambda _: None, spec)
+                assert moe["groups"][gi][pi][k] == want, k
+            assert any(moe["groups"][gi][pi][k] is not None
+                       for k in ("w_gate", "w_up", "w_down"))
+    assert moe["embed"] is None and full["embed"] is not None
+
+
+def _one_mesh():
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh((1, 1), ("data", "model"), device="cpu")
+
+
+@pytest.fixture
+def kernel_gate(monkeypatch):
+    """The folded-CUR kernel gate open on the CPU, and cur_matmul_op's
+    calls recorded (its CPU version is the plain chain, and it raises for
+    an input that requires a gradient, as on the card)."""
+    from repro_torch.kernels.cur_matmul import ops
+    from repro_torch.models import layers
+    calls = []
+    real = ops.cur_matmul_op
+
+    def op(*a):
+        calls.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(layers, "use_cur_kernel", lambda *a, **k: True)
+    monkeypatch.setattr(ops, "cur_matmul_op", op)
+    return calls
+
+
+@pytest.mark.parametrize("case", ["no_grad", "grad_mode", "folded_trains",
+                                  "healing_trains"])
+def test_placed_column_parallel_cur_dispatches_as_on_one_device(
+        world_of_one, kernel_gate, case):
+    """A column-parallel CUR weight under a mesh takes cur_matmul where
+    the one-device path does: in inference (grad mode on or off) the
+    kernel runs on the local R; a folded weight that requires a gradient
+    raises in both; the healing form trains through the chain, its
+    gradients the one-device ones."""
+    from repro_torch.models.layers import apply_w
+    from repro_torch.dist.sharding import P
+    mesh = _one_mesh()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(40, 64, generator=g)
+    if case == "healing_trains":
+        w = {"C": torch.randn(64, 16, generator=g),
+             "U0": torch.randn(16, 16, generator=g),
+             "dU": torch.zeros(16, 16), "R": torch.randn(16, 48, generator=g)}
+        spec = {"C": None, "U0": None, "dU": None, "R": P(None, "model")}
+    else:
+        w = {"CU": torch.randn(64, 16, generator=g),
+             "R": torch.randn(16, 48, generator=g)}
+        spec = {"CU": None, "R": P(None, "model")}
+    want = apply_w(x, w)
+    n_one = len(kernel_gate)
+    if case == "no_grad":
+        with torch.no_grad():
+            got = apply_w(x, w, spec, mesh)
+    elif case == "grad_mode":
+        got = apply_w(x, w, spec, mesh)
+    elif case == "folded_trains":
+        w = {k: v.requires_grad_() for k, v in w.items()}
+        for m in ((), (spec, mesh)):
+            with pytest.raises(RuntimeError, match="requires grad"):
+                apply_w(x, w, *m)
+        return
+    else:
+        leaves = {k: v.clone().requires_grad_() for k, v in w.items()}
+        one = {k: v.clone().requires_grad_() for k, v in w.items()}
+        got = apply_w(x, leaves, spec, mesh)
+        apply_w(x, one).square().sum().backward()
+        got.square().sum().backward()
+        for k in w:
+            torch.testing.assert_close(leaves[k].grad, one[k].grad,
+                                       rtol=2e-5, atol=2e-5)
+        assert len(kernel_gate) == 0
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    if case in ("no_grad", "grad_mode"):
+        assert len(kernel_gate) == 2 * n_one == 2
+
+
+def test_plain_mesh_is_placed_on_entry(world_of_one):
+    """Under a plain DeviceMesh the entry points place whole params on
+    entry: forward, loss_fn, forward_hidden and generate give the
+    one-device results (mixtral SMOKE, a2a body, 1 x 1 mesh), and params
+    that require a gradient are refused."""
+    from repro_torch.models import forward, forward_hidden, init_params
+    from repro_torch.models import loss_fn
+    from repro_torch.serve import generate
+    mesh = _one_mesh()
+    cfg = get_smoke("mixtral-8x22b").replace(moe_impl="a2a",
+                                             capacity_factor=8.0,
+                                             dtype="float32")
+    p = init_params(0, cfg, "cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+    b = {"tokens": toks, "labels": toks}
+    with torch.no_grad():
+        torch.testing.assert_close(forward(p, cfg, b, mesh),
+                                   forward(p, cfg, b), rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(loss_fn(p, cfg, b, mesh),
+                                   loss_fn(p, cfg, b), rtol=2e-5, atol=2e-5)
+        for a, c in zip(forward_hidden(p, cfg, b, mesh),
+                        forward_hidden(p, cfg, b)):
+            torch.testing.assert_close(a, c, rtol=2e-5, atol=2e-5)
+    assert torch.equal(generate(p, cfg, toks[:, :8], 4, mesh=mesh).tokens,
+                       generate(p, cfg, toks[:, :8], 4).tokens)
+    p["final_norm"]["scale"].requires_grad_()
+    with pytest.raises(ValueError, match="plain DeviceMesh"):
+        loss_fn(p, cfg, b, mesh)
