@@ -199,7 +199,10 @@ nonzero:
               f32; (b) olmo-1b in f32 (phase 9a's batch): the meshed train
               step and EF step (compressed_psum's all-gather) against the
               unmeshed ones (losses within 2e-5; bitwise printed); (c)
-              compressed_psum == dq8(q8(x)) bit for bit
+              compressed_psum == dq8(q8(x)) bit for bit; (d) each NCCL
+              call the collective funnels make (they skip one-rank
+              groups) once over each one-rank group, bf16 and f32: each
+              equal to its operand
  13. placed   (after 12, before 8) sharded training at world size 1 (an
               NCCL group on phase 12's FileStore, a 1 x 1 mesh): (a)
               olmo-1b uncut in f32 at phase 9a's batch (8 x 128) and a
@@ -217,14 +220,33 @@ nonzero:
               layers' wq, wk and w_gate CURed (folded): the placed
               forward against the unplaced one in bf16 and f32, under
               no_grad and in grad mode, cur_matmul once a folded weight
+ 14. serving  (after 13, before 8) placed serving at world size 1 (an
+              NCCL group on phase 12's FileStore, a 1 x 1 mesh; params
+              placed by param_pspecs, caches by cache_pspecs, pools by
+              paged_cache_pspecs): (a) generate() on phase 6's CURed
+              llama3.1-8b, 8 x 512 prompts, 64 new tokens, placed against
+              mesh=None: tokens, logprobs and a prefill / decode step's
+              logits bit-equal, equal launches of every kernel; (b) the
+              same model through Server(mesh=) on workload A (all
+              requests submitted at once) with a dense pool, a CUR-KV r 64
+              pool and spec_k 4 drafted by itself, each against
+              Server(mesh=None): equal tokens and launches, tok/s; (c)
+              mamba2-1.3b uncut through the placed engine, bit-equal; (d)
+              the dry run (llama3.1-8b, train_4k and decode_32k --paged
+              --cur, the fake 16 x 16 mesh) in a process of its own,
+              after (a)-(c): its roofline lines (modelled), no tensor on
+              the card (memory_allocated 0), no kernel launched; the
+              context PyTorch makes there for fake CUDA tensors is
+              reported (nvidia-smi)
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernel table.
 ``--phases 1,2,3`` runs only the phases named (for a first check of a new
 kernel; phase 9 without 6 makes llama3.1-8b's weights itself, phase 10
 needs 6 and trains its REPRO model without 9, phase 11 needs none of the
-others: ``--phases 1,2,11``, nor do 12 and 13: ``--phases 1,2,12,13``);
-the kernel table and the last line need every phase.
+others: ``--phases 1,2,11``, nor do 12 and 13: ``--phases 1,2,12,13``;
+14 without 6 CURs llama3.1-8b itself, without the save: ``--phases
+1,2,14``); the kernel table and the last line need every phase.
 """
 import argparse
 import gc
@@ -318,6 +340,15 @@ def nvidia_smi_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_used_mib():
+    """The card's memory in use by every process (nvidia-smi), MiB."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return int(out.stdout.strip().splitlines()[0])
 
 
 def rel_err(y, yr):
@@ -4457,6 +4488,45 @@ def dist_psum(mesh):
     return [] if same else ["12c compressed_psum != dq8(q8(x))"]
 
 
+def dist_nccl(mesh):
+    """12d: each NCCL call the collective funnels make (all_gather,
+    all_reduce sum and max, reduce_scatter, all_to_all_single), once on a
+    card tensor over each one-rank group of the mesh, bf16 and f32: the
+    funnels skip groups of one rank, so this keeps NCCL's wiring (dtypes,
+    contiguity, groups) driven on the card. At one rank each is its
+    operand."""
+    import torch
+    import torch.distributed as dist
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bad = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((64, 512), generator=gen, device="cuda").to(dtype)
+        xt = x.t().contiguous()     # a funnel's non-contiguous operand
+        for axis in mesh.mesh_dim_names:
+            g = mesh.get_group(axis)
+            parts = [torch.empty_like(xt)]
+            dist.all_gather(parts, xt, group=g)
+            s_, m_ = x.clone(), x.clone()
+            dist.all_reduce(s_, group=g)
+            dist.all_reduce(m_, op=dist.ReduceOp.MAX, group=g)
+            rs = torch.empty_like(x)
+            dist.reduce_scatter(rs, [p.contiguous() for p in x.chunk(1, 1)],
+                                group=g)
+            a2a = torch.empty_like(xt)
+            dist.all_to_all_single(a2a, xt, group=g)
+            torch.cuda.synchronize()
+            got = {"all_gather": torch.equal(parts[0], xt),
+                   "all_reduce": torch.equal(s_, x),
+                   "all_reduce max": torch.equal(m_, x),
+                   "reduce_scatter": torch.equal(rs, x),
+                   "all_to_all_single": torch.equal(a2a, xt)}
+            say(f"  12d NCCL over {axis!r} ({dist.get_world_size(g)} rank) "
+                f"{dtype}: {json.dumps(got)}")
+            bad += [f"12d {k} {axis} {dtype}" for k, ok in got.items()
+                    if not ok]
+    return bad
+
+
 def phase_dist():
     """Phase 12: the distributed layer on the card at world size 1: an
     NCCL process group (a FileStore under build/, no TCP port) and a 1 x 1
@@ -4481,7 +4551,7 @@ def phase_dist():
         say(f"  backend {dist.get_backend()}, mesh {tuple(mesh.shape)} "
             f"{mesh.mesh_dim_names}")
         for name, part in (("12a", dist_mixtral), ("12b", dist_olmo),
-                           ("12c", dist_psum)):
+                           ("12c", dist_psum), ("12d", dist_nccl)):
             torch.cuda.synchronize()
             _zero_counts()
             t0 = time.perf_counter()
@@ -4873,10 +4943,300 @@ def phase_placed():
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: placed serving at world size 1, and the dry run
+# ---------------------------------------------------------------------------
+
+PLACED_ENGINE = ENGINE_SHAPE                  # 14a: B, prompt, new tokens
+PLACED_MAMBA = (4, 256, 32)                   # 14c: B, prompt, new tokens
+DRYRUN_CELLS = (("--shape", "train_4k"),      # 14d, llama3.1-8b, 16 x 16
+                ("--shape", "decode_32k", "--paged", "--cur"))
+DRYRUN_DIR = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+DRYRUN_TIMEOUT = 300                          # seconds, both cells
+
+
+def _cured_llama():
+    """Phase 6's CURed llama3.1-8b when phase 6 did not run: cure()'s
+    seed-0 weights, its calibration and its 10 layers at r_max 256,
+    folded, without the save stage."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import CURConfig
+    from repro_torch.core import calibrate, compress_model
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    cfg = get_config("llama3.1-8b")
+    params = init_params(0, cfg, "cuda")
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, 512, 4, seed=0), "cuda")
+    calib = calibrate(params, cfg, [ds.batch_at(i) for i in range(4)])
+    cured, ccfg, _ = compress_model(params, cfg, CURConfig(
+        r_max=256, n_compress_layers=10, selection="wanda_deim",
+        svd="randomized", pipeline="batched", fold_u=True), calib)
+    del params, calib
+    return cured, ccfg
+
+
+def _delta(c0, c1):
+    return {k: c1[k] - c0[k] for k in c0}
+
+
+def _placed_generate(mesh, params, cfg, prompts, n_new, label):
+    """generate() and one prefill + decode step, unplaced then placed:
+    the failures of (tokens, logprobs, logits bit-equal; equal launches of
+    every kernel). Returns (failures, launches of the placed run)."""
+    import torch
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.serve import generate
+    B, S = prompts.shape
+    out = {}
+    for name, m in (("unplaced", None), ("placed", mesh)):
+        torch.cuda.synchronize()
+        c0 = _counts()
+        t0 = time.perf_counter()
+        res = generate(params, cfg, prompts, n_new, mesh=m)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = _delta(c0, _counts())
+        with torch.no_grad():
+            cache = init_cache(cfg, B, S + 1, "cuda", mesh=m)
+            l0, cache = prefill(params, cfg, {"tokens": prompts}, cache, m)
+            pos = torch.full((B, 1), S, dtype=torch.int32, device="cuda")
+            l1, _ = decode_step(params, cfg, {"tokens": res.tokens[:, :1]},
+                                cache, pos, m)
+        del cache
+        out[name] = (res, (l0, l1), n)
+        say(f"  {label} generate() {name}: {B} x {S} prompts, {n_new} new "
+            f"tokens in {secs:.2f} s ({B * n_new / secs:.1f} tok/s); "
+            f"launches {json.dumps(n)}")
+    (ru, lu, nu), (rp, lp, np_) = out["unplaced"], out["placed"]
+    checks = {
+        "tokens equal": torch.equal(ru.tokens, rp.tokens),
+        "logprobs bit-equal": torch.equal(ru.logprobs, rp.logprobs),
+        "prefill and decode logits bit-equal": all(
+            torch.equal(a, b) for a, b in zip(lu, lp)),
+        "equal launches of every kernel": nu == np_,
+    }
+    say(f"  {label} placed == unplaced: {json.dumps(checks)}")
+    return [f"{label}: {k}" for k, ok in checks.items() if not ok]
+
+
+def placed_engine(mesh, model):
+    """14a: generate() on phase 6's CURed llama3.1-8b (full width and
+    depth, bf16) on 8 x 512 prompts, 64 new tokens, under the 1 x 1 mesh
+    (params placed per param_pspecs, the cache per cache_pspecs) against
+    mesh=None."""
+    from repro_torch.data.tokens import DataConfig, SyntheticLM
+    params, cfg = model
+    B, S, n_new = PLACED_ENGINE
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=3), "cuda")
+    return _placed_generate(mesh, params, cfg, ds.batch_at(0)["tokens"],
+                            n_new, "14a llama3.1-8b (CURed)")
+
+
+def placed_server(mesh, model):
+    """14b: the same model through Server(mesh=) on phase 7's workload A
+    (all requests submitted at once, then drained: the same schedule in
+    both runs) with a dense pool, a CUR-KV r 64 pool, and spec_k 4 drafted
+    by itself on the dense pool, each against Server(mesh=None)."""
+    import torch
+    from repro_torch.serving import PagedConfig, Server
+    params, cfg = model
+    wl = _workloads(cfg.vocab_size)["A"]
+    max_len = max(len(w["prompt"]) + w["max_new_tokens"] for w in wl)
+    bad = []
+    for label, cur_kv, spec in (("dense", False, 0),
+                                (f"CUR-KV r={KV_RANK}", True, 0),
+                                (f"dense, spec_k {SPEC_K} self-draft", False,
+                                 SPEC_K)):
+        pc = PagedConfig.sized_for(max_len, 8, block_size=16, cur_kv=cur_kv,
+                                   kv_rank=KV_RANK)
+        kw = dict(draft_params=params, draft_cfg=cfg, spec_k=spec) \
+            if spec else {}
+        out = {}
+        for name, m in (("unplaced", None), ("placed", mesh)):
+            srv = Server(params, cfg, pc, max_concurrency=8, device="cuda",
+                         mesh=m, **kw)
+            torch.cuda.synchronize()
+            c0 = _counts()
+            for w in wl:
+                srv.submit(w["prompt"], w["max_new_tokens"])
+            finished = srv.drain()
+            torch.cuda.synchronize()
+            n = _delta(c0, _counts())
+            st = srv.stats()
+            out[name] = ({k: r.out_tokens for k, r in finished.items()}, n)
+            say(f"  14b A {label} Server {name}: {st['tokens_generated']} "
+                f"tokens, {st['tokens_per_s']:.1f} tok/s (busy "
+                f"{st['tokens_per_s_busy']:.1f}); TPOT p50 "
+                f"{st['tpot_p50_s'] * 1e3:.2f} ms; launches {json.dumps(n)}"
+                + (f"; accept rate {st['spec_accept_rate']:.4f}"
+                   if spec else ""))
+            del srv
+            torch.cuda.empty_cache()
+        (tu, nu), (tp, np_) = out["unplaced"], out["placed"]
+        checks = {"every request finished": len(tp) == len(wl),
+                  "tokens equal": tu == tp,
+                  "equal paged_attention launches":
+                      nu["paged_attention"] == np_["paged_attention"] > 0,
+                  "equal launches of every kernel": nu == np_}
+        say(f"  14b A {label} placed == unplaced: {json.dumps(checks)}")
+        bad += [f"14b {label}: {k}" for k, ok in checks.items() if not ok]
+    return bad
+
+
+def placed_mamba(mesh):
+    """14c: mamba2-1.3b uncut (phase 11d's config, seed-0 weights, bf16)
+    through the placed engine (its state and conv caches per
+    cache_pspecs) against mesh=None."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("mamba2-1.3b")
+    params = init_params(0, cfg, "cuda")
+    B, S, n_new = PLACED_MAMBA
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                            generator=gen)
+    return _placed_generate(mesh, params, cfg, prompts, n_new,
+                            "14c mamba2-1.3b")
+
+
+def placed_dryrun():
+    """14d: the port's dry run (``repro_torch.launch.dryrun``'s CLI,
+    llama3.1-8b on the fake 16 x 16 mesh, each cell with its flags) in a
+    process of its own, after 14a-c (no timed part shares the host with
+    it): its roofline lines and seconds; the process must have held no
+    tensor on the card and launched no kernel. PyTorch initializes CUDA
+    there at the first fake CUDA tensor (and a train cell's backward needs
+    the device): the card memory the process holds (its context; nvidia-
+    smi, against the reading before it started, this process idle
+    meanwhile) is reported. Its figures are modelled (data-sheet
+    constants), not measured."""
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    outs = [os.path.join(DRYRUN_DIR, f"cell{i}.json")
+            for i in range(len(DRYRUN_CELLS))]
+    argvs = [["--arch", "llama3.1-8b", *cell, "--out", out]
+             for cell, out in zip(DRYRUN_CELLS, outs)]
+    code = ("import time\nt0 = time.perf_counter()\n"
+            "from repro_torch.launch import dryrun\n"
+            "print(f'imported in {time.perf_counter() - t0:.1f} s')\n"
+            f"for argv in {argvs!r}:\n    dryrun.main(argv)\n"
+            "import subprocess\n"
+            "print('card used', subprocess.run(['nvidia-smi', "
+            "'--query-gpu=memory.used', '--format=csv,noheader,nounits'], "
+            "capture_output=True, text=True).stdout.split()[0])\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    before = card_used_mib()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=ROOT,
+                            text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        secs = time.perf_counter() - t0
+        lines = stdout.strip().splitlines()
+        label = "14d dryrun"
+        for line in lines:
+            if line.startswith("=== "):
+                label = f"14d dryrun {line[4:]}"
+            elif line.startswith(("  memory", "  cost", "  roofline")):
+                say(f"  {label}:{line[1:]}")
+            elif line.startswith("imported"):
+                say(f"  14d dryrun: {line}")
+        if proc.returncode != 0 or not all(map(os.path.exists, outs)):
+            say(stderr[-3000:])
+            return [f"14d dryrun: exit {proc.returncode}"]
+        cells = []
+        for out in outs:
+            with open(out) as f:
+                cells += json.load(f)
+        for c in cells:
+            if c["status"] != "OK":
+                say(f"  14d dryrun {c['shape']}: {c['status']} "
+                    f"{c.get('error', c.get('reason'))}")
+        devices = [json.loads(line.split("device: ", 1)[1])
+                   for line in lines if line.startswith("device: ")]
+        held = [int(line.split()[-1]) - before for line in lines
+                if line.startswith("card used")]
+        say(f"  14d dryrun: {len(cells)} cells in {secs:.1f} s in their "
+            f"process (after 14a-c); status "
+            f"{[c['status'] for c in cells]}; kernels "
+            f"{json.dumps([c.get('kernels') for c in cells])}; device "
+            f"{json.dumps(devices[-1])}; the process held {held} MiB of "
+            f"the card at its end (its CUDA context; nvidia-smi)")
+        checks = {
+            "every cell OK": all(c["status"] == "OK" for c in cells),
+            "no tensor on the card": all(d["memory_allocated"] == 0
+                                         for d in devices),
+            "no kernel launched": not any(
+                v for d in devices for v in d["launches"].values()),
+            "kernels traced (shape-only)": all(c.get("kernels")
+                                               for c in cells),
+        }
+        return [f"14d dryrun: {k}" for k, ok in checks.items() if not ok]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+
+
+def phase_placed_serving(run):
+    """Phase 14: placed serving at world size 1 (an NCCL group on a
+    FileStore under build/, a 1 x 1 mesh) and then the dry run in a
+    process of its own. Each part is driven with the counts set to 0 just
+    before it and read just after. Returns the summed counts."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    say("== phase 14: placed serving (NCCL, world size 1, 1 x 1 mesh) and "
+        "the dry run")
+    t_phase = time.perf_counter()
+    model = ((run.cured_params, run.cured_cfg) if run is not None
+             else _cured_llama())
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    total = {"cur_matmul": 0, "flash_attention": 0, "paged_attention": 0}
+    failed = []
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(DIST_DIR, "store"),
+                                         1), rank=0, world_size=1)
+        mesh = make_local_mesh((1, 1), ("data", "model"), device="cuda")
+        for name, part in (("14a", lambda: placed_engine(mesh, model)),
+                           ("14b", lambda: placed_server(mesh, model)),
+                           ("14c", lambda: placed_mamba(mesh))):
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            failed += part()
+            torch.cuda.synchronize()
+            n = _counts()
+            for k, v in n.items():
+                total[k] += v
+            gc.collect()
+            torch.cuda.empty_cache()
+            say(f"  {name} launches {json.dumps(n)}, "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    failed += placed_dryrun()
+    say(f"  phase 14 launches {json.dumps(total)}, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise SystemExit(f"placed serving checks failed: {failed}")
+    return total
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (all by default)")
     ap.add_argument("--cpu-progressive", nargs=2, metavar=("IN", "OUT"),
                     help="phase 10e's CPU run (started by phase 10)")
@@ -4913,27 +5273,30 @@ def main():
         dist_launches = phase_dist()
     if 13 in phases:
         placed_launches = phase_placed()
+    if 14 in phases:
+        serving_launches = phase_placed_serving(run)
     if 8 in phases and run is not None:
         phase_split(run, heal_case)
-    if phases != set(range(1, 14)):
+    if phases != set(range(1, 15)):
         say(f"ran phases {sorted(phases)} only: no kernel table")
         return 1
     # launches on the main paths: the last cure() run (its generate stage
     # included) with both perplexity passes (phase 6), phase 7's runs,
     # phase 9's training, healing and trained-weights runs, phase 10's
-    # planning parts, phase 11's families, phase 12's meshed runs and
-    # phase 13's placed training
+    # planning parts, phase 11's families, phase 12's meshed runs, phase
+    # 13's placed training and phase 14's placed serving
     launches = {k: main_launches.get(k, 0) + serve_launches[k]
                 + train_launches[k] + plan_launches[k] + family_launches[k]
                 + dist_launches[k] + placed_launches[k]
-                for k in serve_launches}
+                + serving_launches[k] for k in serve_launches}
     say(f"launches phase 6 {json.dumps(main_launches)}, phase 7 "
         f"{json.dumps(serve_launches)}, phase 9 "
         f"{json.dumps(train_launches)}, phase 10 "
         f"{json.dumps(plan_launches)}, phase 11 "
         f"{json.dumps(family_launches)}, phase 12 "
         f"{json.dumps(dist_launches)}, phase 13 "
-        f"{json.dumps(placed_launches)}")
+        f"{json.dumps(placed_launches)}, phase 14 "
+        f"{json.dumps(serving_launches)}")
     meta = {
         "cur_matmul": ("src/repro_torch/csrc/cur_matmul.cu",
                        "src/repro/kernels/cur_matmul/cur_matmul.py:48"),

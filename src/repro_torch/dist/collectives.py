@@ -32,16 +32,59 @@ contribution). ``psum`` is a sum whose result every rank then uses in its
 own way (a norm's statistics over a sharded feature dim). An op over
 several axes (``("pod", "data")``) works major axis first, as a JAX
 PartitionSpec entry does.
+
+Every collective of the port goes through five funnels: ``all_gather_cat``,
+``all_reduce``, ``all_reduce_max``, ``reduce_scatter`` and ``_a2a``. Inside
+:func:`recording` each funnel call over a group of more than one rank notes
+its operand's bytes under JAX's HLO opcode name (``all-gather``,
+``all-reduce``, ``reduce-scatter``, ``all-to-all``; ``collective-permute``
+stays 0: the port has none), with the call ``count`` and the ``total``, the
+keys of ``repro.roofline.analysis.collective_bytes``. One call over several
+axes counts once, as JAX's one collective over them does. Outside
+:func:`recording` a funnel pays one call that checks ``None``. An axis of
+one rank is skipped: a gather or an all-to-all over one rank returns a
+copy, a sum leaves its operand as it is (``chip_smoke.py`` phase 12d
+drives each NCCL call on the card all the same).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import axis_sizes
+
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_RECORD: Optional[Dict[str, int]] = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Yields the dict the funnels note their operand bytes into (see the
+    module docstring)."""
+    global _RECORD
+    prev = _RECORD
+    _RECORD = dict.fromkeys(COLLECTIVES + ("count", "total"), 0)
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def _note(op: str, x, moves) -> None:
+    """Notes ``x``'s bytes under ``op`` when recording and the call
+    ``moves`` (spans more than one rank)."""
+    if _RECORD is None or not moves:
+        return
+    nbytes = x.numel() * x.element_size()
+    _RECORD[op] += nbytes
+    _RECORD["count"] += 1
+    _RECORD["total"] += nbytes
 
 
 def entry_axes(axes) -> Tuple[str, ...]:
@@ -60,6 +103,13 @@ def dp_axes(mesh) -> Tuple[str, ...]:
     """The batch axes on ``mesh``: those of ("pod", "data") it has."""
     names = axis_sizes(mesh)
     return tuple(a for a in ("pod", "data") if a in names)
+
+
+def _ranked(mesh, axes) -> Tuple[str, ...]:
+    """The axes of ``axes`` with more than one rank (a collective over an
+    axis of one rank moves nothing and is skipped)."""
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in entry_axes(axes) if sizes[a] > 1)
 
 
 def axes_size(mesh, axes) -> int:
@@ -90,24 +140,33 @@ def block(x, dim: int, mesh, axes):
 def all_gather_cat(x, dim: int, mesh, axes):
     """Every rank's ``x`` over ``axes`` concatenated along ``dim`` in
     block order (no gradient)."""
-    for a in reversed(entry_axes(axes)):           # minor axis first
+    ranked = _ranked(mesh, axes)
+    _note("all-gather", x, ranked)
+    if not ranked:                                 # one rank: its own copy
+        return x.clone(memory_format=torch.contiguous_format)
+    for a in reversed(ranked):                     # minor axis first
         g = mesh.get_group(a)
+        x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
-        dist.all_gather(parts, x.contiguous(), group=g)
+        dist.all_gather(parts, x, group=g)
         x = torch.cat(parts, dim=dim)
     return x
 
 
 def all_reduce(x, mesh, axes):
     """In-place sum of ``x`` over ``axes`` (no gradient)."""
-    for a in entry_axes(axes):
+    ranked = _ranked(mesh, axes)
+    _note("all-reduce", x, ranked)
+    for a in ranked:
         dist.all_reduce(x, group=mesh.get_group(a))
     return x
 
 
 def all_reduce_max(x, mesh, axes):
     """In-place maximum of ``x`` over ``axes`` (no gradient)."""
-    for a in entry_axes(axes):
+    ranked = _ranked(mesh, axes)
+    _note("all-reduce", x, ranked)
+    for a in ranked:
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
     return x
 
@@ -116,7 +175,9 @@ def reduce_scatter(x, dim: int, mesh, axes):
     """This rank's block along ``dim`` of the sum of ``x`` over ``axes``
     (no gradient): the all-reduce's sum, of which each rank keeps the
     block it owns."""
-    for a in entry_axes(axes):                     # major axis first
+    ranked = _ranked(mesh, axes)
+    _note("reduce-scatter", x, ranked)
+    for a in ranked:                               # major axis first
         g = mesh.get_group(a)
         n = dist.get_world_size(g)
         parts = [p.contiguous() for p in x.chunk(n, dim=dim)]
@@ -126,6 +187,19 @@ def reduce_scatter(x, dim: int, mesh, axes):
         out = torch.empty_like(parts[0])
         dist.reduce_scatter(out, parts, group=g)
         x = out
+    return x
+
+
+def relayout(x, have, want, mesh, axis: str = "model"):
+    """``x``, this rank's block over ``axis`` along dim ``have`` (None:
+    whole), in the layout of this rank's block along dim ``want`` (None:
+    whole): all-gathered along ``have``, then cut along ``want``."""
+    if have == want:
+        return x
+    if have is not None:
+        x = all_gather_cat(x, have, mesh, axis)
+    if want is not None:
+        x = block(x, want, mesh, axis)
     return x
 
 
@@ -205,8 +279,13 @@ class _Psum(torch.autograd.Function):
 
 
 def _a2a(x, group):
+    n = dist.get_world_size(group)
+    _note("all-to-all", x, n > 1)
+    if n == 1:
+        return x.clone(memory_format=torch.contiguous_format)
+    x = x.contiguous()                             # and so its result
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
+    dist.all_to_all_single(out, x, group=group)
     return out
 
 

@@ -255,23 +255,6 @@ def param_pspecs(params, cfg: ModelConfig, mesh):
                  lambda path, leaf: _leaf_spec(path, leaf, cfg, mesh))
 
 
-_MOE_ROLES = ("router", "w_gate", "w_up", "w_down")
-
-
-def moe_pspecs(params, cfg: ModelConfig, mesh):
-    """:func:`param_pspecs` with every leaf but the routed MoE layers'
-    (the router and the experts; not a shared expert) replicated: the
-    placement the engine's prefill and decode run under, whose attention,
-    Mamba and caches take whole weights (ROADMAP 18.3)."""
-    def one(path, leaf):
-        blk = _block_spec_at(path, cfg)
-        if (blk is None or blk.mlp != "moe" or "shared" in path
-                or _split_path(path)[0] not in _MOE_ROLES):
-            return None
-        return _leaf_spec(path, leaf, cfg, mesh)
-    return _walk(params, (), one)
-
-
 def draft_param_pspecs(draft_params, cfg: ModelConfig, mesh):
     """Specs for a speculative-decoding DRAFT parameter tree on the same
     mesh as the target's: the same layout contract, whose low CUR ranks
@@ -453,6 +436,23 @@ def local_shard(t, spec, mesh):
         if entry is not None:
             t = block(t, d, mesh, entry)
     return t
+
+
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's block of a global ``shape`` under ``spec``."""
+    out = list(shape)
+    for d, entry in enumerate(spec or ()):
+        if entry is not None:
+            out[d] //= axes_size(mesh, entry)
+    return tuple(out)
+
+
+def model_dim(spec) -> Optional[int]:
+    """The dim ``spec`` shards over 'model', or None."""
+    for d, entry in enumerate(spec or ()):
+        if "model" in entry_axes(entry):
+            return d
+    return None
 
 
 # ---------------------------------------------------------------------------

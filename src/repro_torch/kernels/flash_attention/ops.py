@@ -7,6 +7,9 @@ gradients reach q, k and v; the kernel's ctypes launch alone would give an
 output with no graph. On the CPU the plain version is differentiable as
 it is.
 
+Fake tensors (a dry run's) take the shape-only path of
+``kernels._fake`` inside ``FlashAttentionFn``, and only they do.
+
 Dispatch between this op and the plain backends is owned by the attention
 registry (``repro_torch.attention.registry``); this module is the raw op.
 """
@@ -16,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _fake
 from repro_torch.kernels.flash_attention import flash_attention as _kernel
 from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -27,8 +31,11 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
-        o = _kernel.flash_attention(q, k, v, causal=causal, window=window,
-                                    scale=scale)
+        if _fake.is_fake(q, k, v):
+            o = _fake.flash_attention(q, k, v, window)
+        else:
+            o = _kernel.flash_attention(q, k, v, causal=causal,
+                                        window=window, scale=scale)
         ctx.save_for_backward(q, k, v, o)
         ctx.mask = (causal, window, scale)
         return o

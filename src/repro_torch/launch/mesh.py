@@ -8,9 +8,16 @@ collective: every rank of the default process group calls the same
 function, which the caller has set up (``init_process_group`` with its
 own store, world size and rank; NCCL on the card, gloo on the CPU).
 
-Weights stay replicated on a mesh in the port; the model's distributed
-bodies (``repro_torch.models.moe``) and the train step run explicit
-collectives over its axes (``repro_torch.dist.collectives``).
+A mesh places weights, optimizer state and caches per the layout specs
+(``repro_torch.dist.sharding``: ``place`` gives each rank its shards, and
+a ``Placed`` tells the model, the train step and the serving steps that
+their inputs are such shards); the layers run explicit collectives over
+its axes (``repro_torch.dist.collectives``).
+
+:func:`fake_production_mesh` is the production mesh on torch's ``fake``
+process-group backend as rank 0 of 256 (512): no devices and no peers,
+for the dry run (``repro_torch.launch.dryrun``), whose collectives on
+fake tensors move nothing.
 
 :class:`AbstractMesh` is a mesh's shape and axis names with no devices,
 for deriving the sharding rules of the production meshes (16 x 16 and 2 x
@@ -56,6 +63,38 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_local_mesh(shape, axes, device=device)
+
+
+def fake_production_mesh(*, multi_pod: bool = False):
+    """:func:`make_production_mesh` on a ``fake`` default process group of
+    256 (512) ranks, this process rank 0, with a "cuda" device type (no
+    card is touched: its collectives return at once). A default group that
+    is already up is torn down first, so meshes of both sizes can follow
+    one another (:func:`teardown`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return fake_mesh(shape, axes)
+
+
+def fake_mesh(shape: Sequence[int], axes: Sequence[str]):
+    """A mesh of ``shape`` on a new ``fake`` default process group, this
+    process rank 0 (see :func:`fake_production_mesh`)."""
+    import torch.distributed as dist
+    # the fake backend's store ships with PyTorch's test utilities only
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from torch.distributed.device_mesh import DeviceMesh
+    teardown()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    ranks = torch.arange(math.prod(shape)).reshape(tuple(shape))
+    return DeviceMesh("cuda", ranks, mesh_dim_names=tuple(axes))
+
+
+def teardown() -> None:
+    """Destroy the default process group, if one is up."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def make_local_mesh(shape: Sequence[int] = (2, 2),

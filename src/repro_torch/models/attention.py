@@ -33,6 +33,7 @@ from repro_torch.attention import registry as attn_registry
 from repro_torch.attention import xla as attn_xla
 from repro_torch.attention.xla import NEG_INF
 from repro_torch.dist import collectives as col
+from repro_torch.dist.sharding import model_dim
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import (
     apply_rope, apply_w, out_local, rms_norm, to_input)
@@ -83,9 +84,10 @@ def attn_forward(x, p, cfg, positions, *, window: int = 0, mesh=None):
     return apply_w(o, p["wo"])
 
 
-def _attn_placed(x, p, cfg, positions, window, lay):
-    """attn_forward on a rank's shards: local heads, or the gather
-    fallback when a column shard cuts through a head."""
+def _qkv_placed(x, p, cfg, positions, lay):
+    """Roped q (B,S,Hl,hd), k, v (B,S,Kl,hd) from a rank's shards, and
+    whether they are this rank's heads (else the whole heads: the gather
+    fallback when a column shard cuts through a head)."""
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     mesh = lay.mesh
@@ -107,14 +109,76 @@ def _attn_placed(x, p, cfg, positions, window, lay):
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = _mix(_group_q(q, Kl), k, v, positions, window, hd ** -0.5, cfg)
-    o = to_input(o.reshape(B, S, Hl * hd), heads_local, lay.spec("wo"),
-                 mesh)
-    return apply_w(o, p["wo"], lay.spec("wo"), mesh)
+    return q, k, v, heads_local
 
 
-def attn_prefill(x, p, cfg, positions, cache, *, window: int = 0):
-    """Forward + KV-cache fill. Returns (out, cache)."""
+def out_placed(o, heads_local, p, lay):
+    """The row-parallel ``wo`` of attention output ``o`` (B, S, heads,
+    hd): this rank's heads, or the whole heads (the rank's block feeds
+    ``wo``)."""
+    B, S = o.shape[:2]
+    o = to_input(o.reshape(B, S, -1), heads_local, lay.spec("wo"), lay.mesh)
+    return apply_w(o, p["wo"], lay.spec("wo"), lay.mesh)
+
+
+def whole_heads(ts, heads_local, mesh):
+    """(q, k, v) with every head: all-gathered over 'model' along the
+    heads dim when they are this rank's."""
+    if not heads_local:
+        return ts
+    return tuple(col.all_gather_cat(t, 2, mesh, "model") for t in ts)
+
+
+def _attn_placed(x, p, cfg, positions, window, lay):
+    """attn_forward on a rank's shards: local heads, or the gather
+    fallback when a column shard cuts through a head."""
+    q, k, v, heads_local = _qkv_placed(x, p, cfg, positions, lay)
+    hd = cfg.resolved_head_dim
+    o = _mix(_group_q(q, k.shape[2]), k, v, positions, window, hd ** -0.5,
+             cfg)
+    return out_placed(o, heads_local, p, lay)
+
+
+def with_whole(cache, specs, mesh, fn):
+    """``fn(view)`` on the whole (over 'model') view of a cache dict whose
+    leaves are a rank's shards per ``specs``: each leaf sharded over
+    'model' is all-gathered for the view and its block written back after
+    ``fn`` (which writes the view in place). Returns ``fn``'s result."""
+    view = {name: col.relayout(t, model_dim(specs.get(name)), None, mesh)
+            for name, t in cache.items()}
+    out = fn(view)
+    for name, t in cache.items():
+        d = model_dim(specs.get(name))
+        if d is not None:
+            t.copy_(col.block(view[name], d, mesh, "model"))
+    return out
+
+
+def _cache_heads(spec) -> bool:
+    """Whether a (B, L, K, hd) cache leaf's spec holds this rank's
+    kv-heads."""
+    return model_dim(spec) == 2
+
+
+def attn_prefill(x, p, cfg, positions, cache, *, window: int = 0,
+                 mesh=None, cache_spec=None):
+    """Forward + KV-cache fill. Returns (out, cache). ``mesh``: a
+    ``Placed`` of this layer's params; ``cache`` is then this rank's
+    shards of the layer's cache per ``cache_spec`` (its kv-heads, or
+    where they do not divide over 'model' a block of head_dim or of the
+    cache length, which the fill writes through the whole view)."""
+    if mesh is not None:
+        q, k, v, hl = _qkv_placed(x, p, cfg, positions, mesh)
+        hd = cfg.resolved_head_dim
+        o = _mix(_group_q(q, k.shape[2]), k, v, positions, window,
+                 hd ** -0.5, cfg)
+        if hl and _cache_heads(cache_spec["k"]):
+            attn_fill_cache(cache, k, v, positions, window)
+        else:
+            kw, vw = whole_heads((k, v), hl, mesh.mesh)
+            with_whole(cache, cache_spec, mesh.mesh, lambda c: attn_fill_cache(
+                c, kw, vw, positions, window))
+        return out_placed(o, hl, p, mesh), cache
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     scale = hd ** -0.5
@@ -159,21 +223,17 @@ def attn_fill_cache(cache, k, v, positions, window: int):
     return cache
 
 
-def attn_decode(x, p, cfg, cache, pos, *, window: int = 0):
-    """Single-token decode. x (B,1,D); pos (B,1) absolute positions. Writes
-    slot ``pos`` (``pos % L`` for a ring buffer) in place, then attends over
-    the cache: scores in the cache dtype, cast to f32 and scaled, masked to
-    the filled slots at or before ``pos`` (and inside the window), softmax,
-    probabilities cast back to the cache dtype for PV. Returns (out,
-    cache)."""
-    B = x.shape[0]
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+def _decode_attend(q, k, v, cache, pos, window: int):
+    """Write the token's k, v (B,1,K,hd) at slot ``pos`` (``pos % L`` for
+    a ring buffer) in place, then attend q (B,1,H,hd) over the cache.
+    Returns o (B, 1, H, hd)."""
+    B, _, H, hd = q.shape
+    K = k.shape[2]
     scale = hd ** -0.5
-    q, k, v = qkv_project(x, p, cfg, pos)              # (B,1,.,hd)
     ck, cv, cp = cache["k"], cache["v"], cache["pos"]
     L = ck.shape[1]
     slot = ((pos[:, 0] % L) if window > 0 else pos[:, 0]).long()
-    b_idx = torch.arange(B, device=x.device)
+    b_idx = torch.arange(B, device=q.device)
     ck[b_idx, slot] = k[:, 0]
     cv[b_idx, slot] = v[:, 0]
     cp[b_idx, slot] = pos[:, 0].to(torch.int32)
@@ -186,5 +246,30 @@ def attn_decode(x, p, cfg, cache, pos, *, window: int = 0):
                     torch.full_like(s, NEG_INF))
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkd->bqkgd", pr.to(cv.dtype), cv)
-    o = o.reshape(B, 1, H * hd)
-    return apply_w(o, p["wo"]), cache
+    return o.reshape(B, 1, H, hd)
+
+
+def attn_decode(x, p, cfg, cache, pos, *, window: int = 0, mesh=None,
+                cache_spec=None):
+    """Single-token decode. x (B,1,D); pos (B,1) absolute positions. Writes
+    slot ``pos`` (``pos % L`` for a ring buffer) in place, then attends over
+    the cache: scores in the cache dtype, cast to f32 and scaled, masked to
+    the filled slots at or before ``pos`` (and inside the window), softmax,
+    probabilities cast back to the cache dtype for PV. Returns (out,
+    cache). ``mesh`` / ``cache_spec``: as :func:`attn_prefill`'s (a cache
+    not sharded by kv-heads is attended through its whole view)."""
+    if mesh is not None:
+        q, k, v, hl = _qkv_placed(x, p, cfg, pos, mesh)
+        if hl and _cache_heads(cache_spec["k"]):
+            o = _decode_attend(q, k, v, cache, pos, window)
+        else:
+            q, k, v = whole_heads((q, k, v), hl, mesh.mesh)
+            hl = False
+            o = with_whole(cache, cache_spec, mesh.mesh,
+                           lambda c: _decode_attend(q, k, v, c, pos, window))
+        return out_placed(o, hl, p, mesh), cache
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = qkv_project(x, p, cfg, pos)              # (B,1,.,hd)
+    o = _decode_attend(q, k, v, cache, pos, window)
+    return apply_w(o.reshape(B, 1, H * hd), p["wo"]), cache

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives as col
+from repro_torch.dist.sharding import model_dim
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import apply_w, out_local, rms_norm, to_input
 
@@ -148,8 +149,12 @@ def _project(x, p):
             apply_w(x, p["w_C"]), apply_w(x, p["w_dt"]))
 
 
-def _mamba_placed(x, p, cfg, lay):
-    """mamba_forward on a rank's shards (see the module docstring)."""
+def _mamba_in_placed(x, p, cfg, lay):
+    """The in-projections on a rank's shards: ({name: activation}, whether
+    the mixer runs on this rank's heads, the params as its heads take
+    them). B and C are whole; on local heads z, x and dt are this rank's
+    columns and the per-head params are sliced to its heads (see the
+    module docstring)."""
     mesh = lay.mesh
     names = ("w_z", "w_x", "w_B", "w_C", "w_dt")
     ys = {k: apply_w(x, p[k], lay.spec(k), mesh) for k in names}
@@ -176,19 +181,46 @@ def _mamba_placed(x, p, cfg, lay):
         for k in ("w_z", "w_x", "w_dt"):
             if local[k]:
                 ys[k] = col.gather(ys[k], -1, mesh, "model")
-    y, _ = _ssd(ys["w_x"], ys["w_B"], ys["w_C"], ys["w_dt"], q, cfg)
-    z = ys["w_z"]
+    return ys, heads, q
+
+
+def _gate_placed(y, z, heads, p, cfg, lay):
+    """rms_norm(y * silu(z)) @ w_out on a rank's shards: on local heads the
+    norm's statistics over d_inner are summed over 'model'."""
+    mesh = lay.mesh
     y = y * F.silu(z.float()).to(y.dtype)
     if heads:
-        # rms_norm over the whole d_inner: its statistics summed over ranks
         sq = torch.sum(torch.square(y.float()), dim=-1, keepdim=True)
         var = col.psum(sq, mesh, "model") / cfg.d_inner
         y = y * torch.rsqrt(var + cfg.norm_eps).to(y.dtype)
-        y = y * mine(p["norm_z"]["scale"]).to(y.dtype)
+        y = y * col.scatter(p["norm_z"]["scale"], -1, mesh,
+                            "model").to(y.dtype)
     else:
         y = rms_norm(y, p["norm_z"]["scale"], cfg.norm_eps)
     y = to_input(y, heads, lay.spec("w_out"), mesh)
     return apply_w(y, p["w_out"], lay.spec("w_out"), mesh)
+
+
+def _mamba_placed(x, p, cfg, lay):
+    """mamba_forward on a rank's shards (see the module docstring)."""
+    ys, heads, q = _mamba_in_placed(x, p, cfg, lay)
+    y, _ = _ssd(ys["w_x"], ys["w_B"], ys["w_C"], ys["w_dt"], q, cfg)
+    return _gate_placed(y, ys["w_z"], heads, p, cfg, lay)
+
+
+def _cache_dims(heads: bool):
+    """The dim of each cache leaf that a rank's compute holds over
+    'model' (None: whole): its heads' conv_x features and state heads on
+    local heads; B and C's tails whole."""
+    return {"conv_x": 2 if heads else None, "conv_B": None, "conv_C": None,
+            "state": 1 if heads else None}
+
+
+def _store(cache, new, heads, spec, mesh):
+    """Write ``new`` (the compute's layout) into the cache shards."""
+    for name, d in _cache_dims(heads).items():
+        cache[name].copy_(col.relayout(new[name], d,
+                                       model_dim(spec.get(name)), mesh))
 
 
 def mamba_forward(x, p, cfg, *, return_state: bool = False, mesh=None):
@@ -204,21 +236,34 @@ def mamba_forward(x, p, cfg, *, return_state: bool = False, mesh=None):
     return out
 
 
-def mamba_prefill(x, p, cfg, cache):
+def _tail(a, K):
+    """The last K - 1 rows of a (B, S, C) pre-conv input, left-padded
+    with zeros when S < K - 1."""
+    pad = max(0, (K - 1) - a.shape[1])
+    return F.pad(a, (0, 0, pad, 0))[:, -(K - 1):, :]
+
+
+def mamba_prefill(x, p, cfg, cache, *, mesh=None, cache_spec=None):
     """Forward + recurrent-cache capture. Writes into ``cache`` in place
     the last K - 1 raw pre-conv inputs (left-padded with zeros when
-    S < K - 1) and the final state. Returns (out, cache)."""
-    S = x.shape[1]
+    S < K - 1) and the final state. Returns (out, cache). ``mesh``: a
+    ``Placed`` of this layer's params; ``cache`` is then this rank's
+    shards per ``cache_spec`` (state heads, conv features over 'model'),
+    which the rank writes from its heads' values or a block of the whole
+    ones."""
     K = cfg.ssm_conv
+    if mesh is not None:
+        ys, heads, q = _mamba_in_placed(x, p, cfg, mesh)
+        y, state = _ssd(ys["w_x"], ys["w_B"], ys["w_C"], ys["w_dt"], q, cfg)
+        _store(cache, {"conv_x": _tail(ys["w_x"], K),
+                       "conv_B": _tail(ys["w_B"], K),
+                       "conv_C": _tail(ys["w_C"], K), "state": state},
+               heads, cache_spec, mesh.mesh)
+        return _gate_placed(y, ys["w_z"], heads, p, cfg, mesh), cache
     z, xb0, Bm0, Cm0, dt = _project(x, p)
-
-    def tail(a):
-        pad = max(0, (K - 1) - S)
-        return F.pad(a, (0, 0, pad, 0))[:, -(K - 1):, :]
-
     y, state = _ssd(xb0, Bm0, Cm0, dt, p, cfg)
-    for name, t in (("conv_x", tail(xb0)), ("conv_B", tail(Bm0)),
-                    ("conv_C", tail(Cm0)), ("state", state)):
+    for name, t in (("conv_x", _tail(xb0, K)), ("conv_B", _tail(Bm0, K)),
+                    ("conv_C", _tail(Cm0, K)), ("state", state)):
         cache[name].copy_(t)
     return _gate_out(y, z, p, cfg), cache
 
@@ -249,14 +294,14 @@ def _conv_step(x_t, cache, w, b):
     return y, window[:, 1:, :]
 
 
-def mamba_decode(x, p, cfg, cache):
-    """Single-token recurrent update. x (B, 1, D) -> (B, 1, D); the conv
-    tails and the state are written into ``cache`` in place. Returns
-    (out, cache)."""
-    B = x.shape[0]
-    di, nh, hp = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xb, Bm, Cm, dt = _project(x[:, 0, :], p)
-
+def _recur(xb, Bm, Cm, dt, p, cfg, cache):
+    """The recurrent update of one token's projected inputs xb (B, di),
+    Bm / Cm (B, N), dt (B, nh) against ``cache`` (conv tails and state;
+    a rank's heads when di and nh are its). Returns (y (B, di) in xb's
+    dtype, {new conv tails, state})."""
+    B = xb.shape[0]
+    nh, hp = dt.shape[-1], cfg.ssm_head_dim
+    dtype = xb.dtype
     xb, c_x = _conv_step(xb, cache["conv_x"], p["conv_x"], p["conv_x_b"])
     Bm, c_B = _conv_step(Bm, cache["conv_B"], p["conv_B"], p["conv_B_b"])
     Cm, c_C = _conv_step(Cm, cache["conv_C"], p["conv_C"], p["conv_C_b"])
@@ -271,9 +316,29 @@ def mamba_decode(x, p, cfg, cache):
     state = cache["state"] * dA[:, :, None, None] + inc
     y = torch.einsum("bn,bhpn->bhp", Cm.float(), state)
     y = y + xh * p["D"].float()[None, :, None]
-    y = y.reshape(B, di).to(x.dtype)
-    out = _gate_out(y, z, p, cfg)[:, None, :]
-    for name, t in (("conv_x", c_x), ("conv_B", c_B), ("conv_C", c_C),
-                    ("state", state)):
+    y = y.reshape(B, nh * hp).to(dtype)
+    return y, {"conv_x": c_x, "conv_B": c_B, "conv_C": c_C, "state": state}
+
+
+def mamba_decode(x, p, cfg, cache, *, mesh=None, cache_spec=None):
+    """Single-token recurrent update. x (B, 1, D) -> (B, 1, D); the conv
+    tails and the state are written into ``cache`` in place. Returns
+    (out, cache). ``mesh`` / ``cache_spec``: as :func:`mamba_prefill`'s
+    (a leaf the compute holds whole is all-gathered over 'model')."""
+    if mesh is not None:
+        ys, heads, q = _mamba_in_placed(x[:, 0, :], p, cfg, mesh)
+        m = mesh.mesh
+        view = {name: col.relayout(cache[name],
+                                   model_dim(cache_spec.get(name)), d, m)
+                for name, d in _cache_dims(heads).items()}
+        y, new = _recur(ys["w_x"], ys["w_B"], ys["w_C"], ys["w_dt"], q, cfg,
+                        view)
+        _store(cache, new, heads, cache_spec, m)
+        out = _gate_placed(y, ys["w_z"], heads, p, cfg, mesh)
+        return out[:, None, :], cache
+    z, xb, Bm, Cm, dt = _project(x[:, 0, :], p)
+    y, new = _recur(xb, Bm, Cm, dt, p, cfg, cache)
+    out = _gate_out(y.to(x.dtype), z, p, cfg)[:, None, :]
+    for name, t in new.items():
         cache[name].copy_(t)
     return out, cache

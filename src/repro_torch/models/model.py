@@ -21,17 +21,22 @@ with no channel mixer (mamba2's ``BlockSpec(MAMBA, "none")``).
 ``mesh`` is None (one device) or a ``repro_torch.dist.sharding.Placed``
 (params placed per their specs: Megatron TP over 'model', FSDP over
 'data'). The entry points also take a plain ``DeviceMesh`` with whole
-params and place them on entry (:func:`place_on_entry`; inference only:
-a differentiable step places its params itself, as the train step
-does); the engine's prefill and decode place only the routed MoE
-weights, since their attention, Mamba and caches take whole weights
-until ROADMAP 18.3. Under a placed mesh the embedding is vocab-sharded (a masked
-local lookup summed over 'model'; the d_model-sharded layout where V does
-not divide), the logits are vocab-sharded, and the loss is a
-vocab-parallel cross-entropy (the max, the sum of exponentials and the
-target logit all-reduced over 'model'; no logits all-gather), which is
-what JAX's one-hot contraction compiles to. :func:`forward` then returns
-the logits all-gathered over 'model'.
+params and place them on entry per ``param_pspecs``
+(:func:`place_on_entry`; inference only: a differentiable step places
+its params itself, as the train step does). :func:`prefill` and
+:func:`decode_step` run on a cache that is this rank's shards per
+``cache_pspecs`` (:func:`init_cache` with a ``mesh``): each rank runs its
+rows of the batch (the batch axes that divide it) through every layer on
+its shards, attention and Mamba on their local heads with the cache's
+kv-heads, state heads and conv features (or, where those do not divide
+over 'model', through the cache's shard gathered whole), and every rank
+gets the global logits. Under a placed mesh the embedding is
+vocab-sharded (a masked local lookup summed over 'model'; the
+d_model-sharded layout where V does not divide), the logits are
+vocab-sharded, and the loss is a vocab-parallel cross-entropy (the max,
+the sum of exponentials and the target logit all-reduced over 'model';
+no logits all-gather), which is what JAX's one-hot contraction compiles
+to. :func:`forward` then returns the logits all-gathered over 'model'.
 
 Activation rematerialization (:func:`apply_groups`) follows JAX's
 ``_maybe_remat``: with ``cfg.remat``, a group scanned over more than one
@@ -45,6 +50,7 @@ backward gathers again. Remat changes memory, never values.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
@@ -57,7 +63,8 @@ from repro_torch.configs.base import (
     ATTN, ATTN_LOCAL, MAMBA, MLP, MOE, ModelConfig)
 from repro_torch.dist import collectives as col
 from repro_torch.dist.sharding import (
-    P, Placed, drop_lead, map_specs, moe_pspecs, param_pspecs, place)
+    P, Placed, cache_pspecs, drop_lead, local_shape, map_specs,
+    param_pspecs, place)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models.layers import apply_w, is_model, norm, to_input
@@ -226,9 +233,9 @@ def channel_mix(x, p, spec, cfg, mesh=None):
     return x
 
 
-def place_on_entry(params, cfg, mesh, specs_fn=param_pspecs):
+def place_on_entry(params, cfg, mesh):
     """(params, mesh) as the layers take them: under a plain
-    ``DeviceMesh`` the whole ``params`` placed per ``specs_fn`` and a
+    ``DeviceMesh`` the whole ``params`` placed per ``param_pspecs`` and a
     ``Placed`` of them; None or a ``Placed`` pass through. Raises where
     ``params`` require a gradient (a placed leaf's gradient would be this
     rank's block only)."""
@@ -239,7 +246,7 @@ def place_on_entry(params, cfg, mesh, specs_fn=param_pspecs):
             for t in flatten_up_to(params, params)):
         raise ValueError("gradients under a plain DeviceMesh: place the "
                          "params and pass a Placed (the train step does)")
-    specs = specs_fn(params, cfg, mesh)
+    specs = param_pspecs(params, cfg, mesh)
     return place(params, specs, mesh), Placed(mesh, specs)
 
 
@@ -336,16 +343,26 @@ def _unstack(tree, reps: int):
     return [unflatten_as(tree, [c[r] for c in cols]) for r in range(reps)]
 
 
-def iter_layer_params(params, cfg):
-    """Yield (layer_idx, spec, per-layer param dict) in network order; the
-    per-layer leaves are views into the stacked ones."""
+def iter_layers(params, cfg, mesh=None):
+    """Yield (layer_idx, spec, per-layer param dict, the layer's mesh) in
+    network order; the per-layer leaves are views into the stacked ones,
+    and the layer's mesh is a ``Placed`` of its specs under a placed
+    ``mesh`` (else None)."""
     li = 0
     for gi, (pattern, reps) in enumerate(cfg.groups):
         views = [_unstack(p, reps) for p in params["groups"][gi]]
+        meshes = _layer_meshes(mesh, gi, pattern)
         for r in range(reps):
             for pi, spec in enumerate(pattern):
-                yield li, spec, views[pi][r]
+                yield li, spec, views[pi][r], meshes[pi]
                 li += 1
+
+
+def iter_layer_params(params, cfg):
+    """Yield (layer_idx, spec, per-layer param dict) in network order; the
+    per-layer leaves are views into the stacked ones."""
+    for li, spec, p, _ in iter_layers(params, cfg):
+        yield li, spec, p
 
 
 def _layer_meshes(mesh, gi, pattern):
@@ -526,12 +543,23 @@ def _init_block_cache(spec, cfg, batch, max_len, dtype, device):
     return {}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               mesh=None):
     """Dense KV cache on ``device`` for ``batch`` sequences of up to
     ``max_len`` tokens: per group, a list of per-pattern-position dicts
-    whose leaves carry a leading ``repeats`` axis (the JAX layout)."""
+    whose leaves carry a leading ``repeats`` axis (the JAX layout). With
+    a ``mesh`` (a ``DeviceMesh`` or a ``Placed``) each leaf is this
+    rank's shard per ``cache_pspecs``, made at its local shape."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
+    if mesh is not None:
+        m = mesh.mesh if isinstance(mesh, Placed) else mesh
+        whole, specs = _cache_layout(cfg, batch, max_len, m)
+        return unflatten_as(whole, [
+            torch.full(local_shape(t.shape, s, m), -1 if t.dtype ==
+                       torch.int32 else 0, dtype=t.dtype, device=device)
+            for t, s in zip(flatten_up_to(whole, whole),
+                            flatten_up_to(whole, specs))])
     cache = {"groups": []}
     for pattern, reps in cfg.groups:
         group = []
@@ -543,63 +571,159 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return cache
 
 
-def _block_prefill(x, p, c, spec, cfg, positions, mesh=None):
+@functools.lru_cache(maxsize=32)
+def _cache_layout(cfg: ModelConfig, batch: int, max_len: int, mesh):
+    """(whole ``meta`` cache, its specs) of a layout (once per layout: a
+    decode step asks every step)."""
+    whole = init_cache(cfg, batch, max_len, "meta")
+    return whole, cache_pspecs(whole, cfg, None, mesh)
+
+
+def place_cache(cache, cfg: ModelConfig, batch: int, mesh):
+    """(cache as a rank's shards, their specs) on ``mesh`` (a
+    ``DeviceMesh``) for a ``batch``-row cache: a cache of
+    :func:`init_cache` with the mesh passes through, a whole one is
+    placed per ``cache_pspecs`` (a copy; the returned cache is the one
+    the steps write). Raises on a cache of any other shape."""
+    lens = [c["pos"].shape[-1] for g in cache["groups"] for c in g
+            if "pos" in c]
+    whole, specs = _cache_layout(cfg, batch, max(lens, default=1), mesh)
+    leaves = flatten_up_to(whole, cache)
+    metas = flatten_up_to(whole, whole)
+    specs_flat = flatten_up_to(whole, specs)
+    if all(tuple(t.shape) == local_shape(w.shape, s, mesh)
+           for t, w, s in zip(leaves, metas, specs_flat)):
+        return cache, specs
+    if all(tuple(t.shape) == tuple(w.shape) for t, w in zip(leaves, metas)):
+        return place(cache, specs, mesh), specs
+    raise ValueError("the cache is neither whole nor placed per "
+                     "cache_pspecs on this mesh (init_cache(mesh=))")
+
+
+def row_axes(batch: int, mesh):
+    """The batch axes a serving step splits ``batch`` rows over: the dp
+    axes where they divide it (the guard of ``batch_pspecs`` and
+    ``cache_pspecs``), else none."""
+    dp = col.dp_axes(mesh)
+    return dp if batch % col.axes_size(mesh, dp) == 0 else ()
+
+
+def serve_entry(params, cfg: ModelConfig, batch: int, mesh):
+    """(params, layout, rows) of a serving step under ``mesh``: the params
+    placed per ``param_pspecs`` (:func:`place_on_entry`), a ``Placed`` of
+    them whose rows are this rank's when ``rows`` (the batch axes the
+    step splits its ``batch`` rows over, :func:`row_axes`) is not
+    empty."""
+    params, lay = place_on_entry(params, cfg, mesh)
+    rows = row_axes(batch, lay.mesh)
+    return params, Placed(lay.mesh, lay.specs, bool(rows)), rows
+
+
+def take_rows(t, rows, mesh):
+    """This rank's rows of a global (B, ...) tensor (``rows`` empty: all
+    of them)."""
+    return col.block(t, 0, mesh, rows) if rows else t
+
+
+def head_logits(params, cfg: ModelConfig, x, lay, rows):
+    """The logits of ``x`` (this rank's rows) under a placed mesh,
+    gathered over 'model' (vocab-sharded) and over the ``rows`` axes:
+    the global logits on every rank."""
+    logits, vlocal = _unembed_placed(params, cfg, x, lay)
+    if vlocal:
+        logits = col.all_gather_cat(logits, -1, lay.mesh, "model")
+    if rows:
+        logits = col.all_gather_cat(logits, 0, lay.mesh, rows)
+    return logits
+
+
+def _block_prefill(x, p, c, spec, cfg, positions, mesh=None, cspec=None):
     h = norm(x, p.get("norm1"), cfg)
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
-        a, c = attn.attn_prefill(h, p, cfg, positions, c, window=win)
+        a, c = attn.attn_prefill(h, p, cfg, positions, c, window=win,
+                                 mesh=mesh, cache_spec=cspec)
     elif spec.mixer == MAMBA:
-        a, c = mb.mamba_prefill(h, p, cfg, c)
+        a, c = mb.mamba_prefill(h, p, cfg, c, mesh=mesh, cache_spec=cspec)
     else:
         raise ValueError(spec.mixer)
     return channel_mix(x + a, p, spec, cfg, mesh), c
 
 
-def _block_decode(x, p, c, spec, cfg, pos, mesh=None):
+def _block_decode(x, p, c, spec, cfg, pos, mesh=None, cspec=None):
     h = norm(x, p.get("norm1"), cfg)
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
-        a, c = attn.attn_decode(h, p, cfg, c, pos, window=win)
+        a, c = attn.attn_decode(h, p, cfg, c, pos, window=win, mesh=mesh,
+                                cache_spec=cspec)
     elif spec.mixer == MAMBA:
-        a, c = mb.mamba_decode(h, p, cfg, c)
+        a, c = mb.mamba_decode(h, p, cfg, c, mesh=mesh, cache_spec=cspec)
     else:
         raise ValueError(spec.mixer)
     return channel_mix(x + a, p, spec, cfg, mesh), c
 
 
-def _apply_groups_cached(x, params, cache, cfg, block_fn, mesh=None):
+def _apply_groups_cached(x, params, cache, cfg, block_fn, mesh=None,
+                         cache_specs=None):
     """The prefill/decode layer loop: a Python loop over every group's
     repeats (the JAX package's ``lax.scan``), each layer's params and
     cache taken as views of the stacked leaves, so ``block_fn``'s in-place
     cache writes land in ``cache``. ``mesh``: None, or a ``Placed`` of
-    :func:`repro_torch.dist.sharding.moe_pspecs`. Returns (x, cache)."""
+    the params, whose cache is this rank's shards per ``cache_specs``
+    (:func:`place_cache`). Returns (x, cache)."""
     for gi, (pattern, reps) in enumerate(cfg.groups):
         gp, gc = params["groups"][gi], cache["groups"][gi]
         meshes = _layer_meshes(mesh, gi, pattern)
+        cspecs = ([None] * len(pattern) if cache_specs is None else
+                  [map_specs(drop_lead, s)
+                   for s in cache_specs["groups"][gi]])
         for r in range(reps):
             for pi, spec in enumerate(pattern):
                 lp = tree_map(lambda a, r=r: a[r], gp[pi])
                 lc = tree_map(lambda a, r=r: a[r], gc[pi])
-                x, _ = block_fn(x, lp, lc, spec, cfg, meshes[pi])
+                x, _ = block_fn(x, lp, lc, spec, cfg, meshes[pi], cspecs[pi])
     return x, cache
+
+
+def _step_inputs(params, cfg, batch, cache, mesh):
+    """(params, batch of this rank's rows, cache, layout, cache specs,
+    rows) of a prefill or decode step (see :func:`prefill`)."""
+    if mesh is None:
+        return params, batch, cache, None, None, ()
+    key = "tokens" if "tokens" in batch else "embeds"
+    B = batch[key].shape[0]
+    params, lay, rows = serve_entry(params, cfg, B, mesh)
+    cache, cspecs = place_cache(cache, cfg, B, lay.mesh)
+    batch = {k: take_rows(v, rows, lay.mesh) for k, v in batch.items()}
+    return params, batch, cache, lay, cspecs, rows
 
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch, cache, mesh=None):
     """Process the prompt; returns (last-position logits (B, V), cache).
-    ``mesh``: None, a ``DeviceMesh`` (the routed MoE weights placed on
-    entry), or the ``Placed`` of :func:`place_on_entry` with
-    ``moe_pspecs``."""
-    params, mesh = place_on_entry(params, cfg, mesh, moe_pspecs)
-    x = _embed(params, cfg, batch)
+
+    ``mesh``: None, a ``DeviceMesh`` (whole params placed per
+    ``param_pspecs`` on entry) or a ``Placed`` of placed params. Under a
+    mesh every rank passes the same global batch and gets the global
+    logits; the cache is this rank's shards per ``cache_pspecs``
+    (``init_cache(mesh=)``; a whole cache is placed on entry, and the
+    returned cache is the one written). Each rank runs its rows of the
+    batch (the batch axes that divide it, as the cache's batch dim) on
+    its shards of every layer."""
+    params, batch, cache, lay, cspecs, rows = _step_inputs(
+        params, cfg, batch, cache, mesh)
+    x = _embed(params, cfg, batch, lay)
     positions = _positions(x)
 
-    def block_fn(xc, p, c, spec, cfg, mesh):
-        return _block_prefill(xc, p, c, spec, cfg, positions, mesh)
+    def block_fn(xc, p, c, spec, cfg, mesh, cspec):
+        return _block_prefill(xc, p, c, spec, cfg, positions, mesh, cspec)
 
-    x, cache = _apply_groups_cached(x, params, cache, cfg, block_fn, mesh)
+    x, cache = _apply_groups_cached(x, params, cache, cfg, block_fn, lay,
+                                    cspecs)
     x = norm(x, params.get("final_norm"), cfg)
-    return _unembed(params, cfg, x[:, -1:, :])[:, 0, :], cache
+    if lay is None:
+        return _unembed(params, cfg, x[:, -1:, :])[:, 0, :], cache
+    return head_logits(params, cfg, x[:, -1:, :], lay, rows)[:, 0, :], cache
 
 
 @torch.no_grad()
@@ -607,12 +731,18 @@ def decode_step(params, cfg: ModelConfig, batch, cache, pos, mesh=None):
     """One decode step. batch: tokens (B, 1); pos (B, 1) absolute
     positions. Returns (logits (B, V), cache). ``mesh``: as
     :func:`prefill`'s."""
-    params, mesh = place_on_entry(params, cfg, mesh, moe_pspecs)
-    x = _embed(params, cfg, batch)
+    params, batch, cache, lay, cspecs, rows = _step_inputs(
+        params, cfg, batch, cache, mesh)
+    if lay is not None:
+        pos = take_rows(pos, rows, lay.mesh)
+    x = _embed(params, cfg, batch, lay)
 
-    def block_fn(xc, p, c, spec, cfg, mesh):
-        return _block_decode(xc, p, c, spec, cfg, pos, mesh)
+    def block_fn(xc, p, c, spec, cfg, mesh, cspec):
+        return _block_decode(xc, p, c, spec, cfg, pos, mesh, cspec)
 
-    x, cache = _apply_groups_cached(x, params, cache, cfg, block_fn, mesh)
+    x, cache = _apply_groups_cached(x, params, cache, cfg, block_fn, lay,
+                                    cspecs)
     x = norm(x, params.get("final_norm"), cfg)
-    return _unembed(params, cfg, x)[:, 0, :], cache
+    if lay is None:
+        return _unembed(params, cfg, x)[:, 0, :], cache
+    return head_logits(params, cfg, x, lay, rows)[:, 0, :], cache

@@ -5,10 +5,11 @@ termination logic a server needs (static max_len, per-sequence EOS).
 The JAX package jit-compiles its two step functions and caches them per
 (config, mesh); the port has no jit, so ``make_prefill`` /
 ``make_serve_step`` return the plain closures. Under a ``mesh`` every
-rank passes the same prompts and gets the same tokens (the MoE layers run
-their distributed bodies on their placed experts; decode's S == 1 takes
-the expert-TP body): :func:`generate` places the routed MoE weights once,
-a bare step function at every call (``models.model.prefill``).
+rank passes the same prompts and gets the same tokens: :func:`generate`
+places the params once per ``param_pspecs`` and makes the cache as this
+rank's shards per ``cache_pspecs``; each step runs the rank's rows of the
+batch on its shards (``models.model.prefill``), and a bare step function
+places whole params at every call.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import moe_pspecs
 from repro_torch.models.model import (
     decode_step, init_cache, place_on_entry, prefill)
 
@@ -63,8 +63,8 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, n_new: int,
     prompts = prompts.long()
     dev = prompts.device
     B, S = prompts.shape
-    cache = init_cache(cfg, B, S + n_new, dev)
-    params, mesh = place_on_entry(params, cfg, mesh, moe_pspecs)
+    params, mesh = place_on_entry(params, cfg, mesh)
+    cache = init_cache(cfg, B, S + n_new, dev, mesh=mesh)
     pf, st = make_prefill(cfg, mesh), make_serve_step(cfg, mesh)
     logits, cache = pf(params, cache, {"tokens": prompts})
     gen = None

@@ -24,7 +24,9 @@ synchronisation.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -33,6 +35,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cur import exact_svd, pinv
 from repro_torch.core.deim import deim
+from repro_torch.dist.sharding import (
+    Placed, local_shape, paged_cache_pspecs)
 from repro_torch.models.model import torch_dtype
 
 
@@ -260,15 +264,27 @@ def serving_window(cfg: ModelConfig) -> int:
     return 0
 
 
-def init_paged_cache(cfg: ModelConfig, pc: PagedConfig, device=None) -> dict:
+def init_paged_cache(cfg: ModelConfig, pc: PagedConfig, device=None,
+                     mesh=None, kernel: bool = True) -> dict:
     """Pool dict: k/v (L, n_blocks, block_size, K, r) plus, in CUR-KV mode,
     per-layer column indices and link matrices (identity-truncation
-    placeholders until :func:`projections_from_kv` calibrates them)."""
+    placeholders until :func:`projections_from_kv` calibrates them).
+
+    With a ``mesh`` (a ``DeviceMesh`` or a ``Placed``) k and v are this
+    rank's shards per ``paged_cache_pspecs(kernel=kernel)``, made at their
+    local shape: by default the kernel's layout (kv-heads over 'model',
+    replicated where they do not divide), which the CUDA kernel and its
+    plain version both grid over; ``kernel=False`` takes the einsum specs'
+    rank / block-pool fallbacks, under which a step attends through the
+    pool gathered over 'model'."""
     device = resolve_device(device)
     L = _attn_layers(cfg)
     K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     r = pc.rank(hd)
     shape = (L, pc.n_blocks, pc.block_size, K, r)
+    if mesh is not None:
+        m = mesh.mesh if isinstance(mesh, Placed) else mesh
+        shape = local_shape(shape, pool_spec(cfg, pc, m, kernel), m)
     dtype = torch_dtype(cfg.dtype)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -278,6 +294,32 @@ def init_paged_cache(cfg: ModelConfig, pc: PagedConfig, device=None) -> dict:
         cache["proj"] = {"qk": idx, "uk": eye, "qv": idx.clone(),
                          "uv": eye.clone()}
     return cache
+
+
+@functools.lru_cache(maxsize=32)
+def pool_spec(cfg: ModelConfig, pc: PagedConfig, mesh, kernel: bool):
+    """The spec of the k / v pools (L, n_blocks, bs, K, r) on ``mesh``
+    per ``paged_cache_pspecs``."""
+    shape = (_attn_layers(cfg), pc.n_blocks, pc.block_size, cfg.n_kv_heads,
+             pc.rank(cfg.resolved_head_dim))
+    meta = {"k": torch.empty(shape, device="meta")}
+    return paged_cache_pspecs(meta, cfg, mesh, kernel=kernel)["k"]
+
+
+def placed_pool_spec(cache: dict, cfg: ModelConfig, pc: PagedConfig, mesh):
+    """The spec a pool of :func:`init_paged_cache` was placed by on
+    ``mesh``: the kernel's layout or the einsum specs', whichever its
+    local shape is. Raises for a pool placed by neither (a whole pool on
+    a mesh that shards it: place it with ``init_paged_cache(mesh=)``)."""
+    shape = (_attn_layers(cfg), pc.n_blocks, pc.block_size, cfg.n_kv_heads,
+             pc.rank(cfg.resolved_head_dim))
+    for kernel in (True, False):
+        spec = pool_spec(cfg, pc, mesh, kernel)
+        if tuple(cache["k"].shape) == local_shape(shape, spec, mesh):
+            return spec
+    raise ValueError(f"pool of shape {tuple(cache['k'].shape)} is not "
+                     f"placed per paged_cache_pspecs on this mesh "
+                     f"(init_paged_cache(mesh=))")
 
 
 def cache_bytes(cache: dict) -> int:
@@ -342,6 +384,17 @@ def reconstruct_kv(x: torch.Tensor, U: Optional[torch.Tensor]
 Rows = Tuple[torch.Tensor, ...]
 
 
+@contextlib.contextmanager
+def host_math():
+    """Index math on host tensors (block tables, contexts) computes real
+    values even while a fake-tensor mode traces the device work (the dry
+    run, ``repro_torch.launch.dryrun``, whose host inputs are real): the
+    mode is set aside for the block. Elsewhere a no-op."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        yield
+
+
 def _lookup(table: torch.Tensor, bi: torch.Tensor):
     """table[b, bi] for bi (B, S) -> (blk, inside): entries past the
     table's width read -1 and ``inside`` is False there."""
@@ -355,6 +408,11 @@ def prompt_rows(table: torch.Tensor, lengths: torch.Tensor, S: int,
                 block_size: int) -> Rows:
     """Valid rows of a padded prompt write: (b, t, block, offset) index
     tensors for every token ``t < lengths[b]`` with an assigned block."""
+    with host_math():
+        return _prompt_rows(table, lengths, S, block_size)
+
+
+def _prompt_rows(table, lengths, S, block_size):
     B = table.shape[0]
     t = torch.arange(S, device=table.device)
     blk, inside = _lookup(table, (t // block_size).expand(B, S))
@@ -368,6 +426,11 @@ def span_rows(table: torch.Tensor, start: torch.Tensor,
               active: torch.Tensor, S: int, block_size: int) -> Rows:
     """Valid rows of an ``S``-position write per slot at positions
     ``start .. start + S - 1``: (b, s, block, offset)."""
+    with host_math():
+        return _span_rows(table, start, active, S, block_size)
+
+
+def _span_rows(table, start, active, S, block_size):
     t = start.to(table.device).long()[:, None] + torch.arange(
         S, device=table.device)[None]
     blk, inside = _lookup(table, t // block_size)

@@ -32,10 +32,13 @@ from repro_torch.attention.prefill import (         # noqa: F401 (re-export)
 from repro_torch.attention.registry import (        # noqa: F401 (re-export)
     fold_q, resolve_paged, resolve_prefill, unfold_o)
 from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
+from repro_torch.dist import collectives as col
+from repro_torch.dist.sharding import drop_lead, model_dim
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_w, norm
 from repro_torch.models.model import (
-    _embed, _unembed, channel_mix, iter_layer_params, torch_dtype)
+    _embed, _unembed, channel_mix, head_logits, iter_layer_params,
+    iter_layers, place_on_entry, serve_entry, take_rows, torch_dtype)
 from repro_torch.serving import paged_cache as pcache
 from repro_torch.serving.sampling import (
     greedy_tokens, request_generator, sample_tokens)
@@ -93,13 +96,76 @@ def _to(t: torch.Tensor, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+def _entry(params, cfg, pc, cache, batch: int, mesh):
+    """(params, layout, rows, pool spec of one layer) of a step under
+    ``mesh`` (None: the one-device path). The params are placed per
+    ``param_pspecs`` (a ``Placed`` passes through), the pool must be
+    placed already (``init_paged_cache(mesh=)``), and the step's slots
+    split over the batch axes that divide them (``rows``), as
+    ``paged_decode_pspecs`` shards every slot-batch input."""
+    if mesh is None:
+        return params, None, (), None
+    params, lay, rows = serve_entry(params, cfg, batch, mesh)
+    spec = pcache.placed_pool_spec(cache, cfg, pc, lay.mesh)
+    return params, lay, rows, drop_lead(spec)
+
+
+def _project(h, p, cfg, positions, lay):
+    """(q, k, v, whether they are this rank's kv-heads) of one layer."""
+    if lay is None:
+        return (*attn.qkv_project(h, p, cfg, positions), False)
+    return attn._qkv_placed(h, p, cfg, positions, lay)
+
+
+def _out(o, heads_local, p, lay):
+    """The layer's ``wo`` of attention output ``o`` (B, S, heads, hd)."""
+    if lay is None:
+        B, S = o.shape[:2]
+        return apply_w(o.reshape(B, S, -1), p["wo"])
+    return attn.out_placed(o, heads_local, p, lay)
+
+
+def _pools(cache, li, pool_spec, heads_local, lay, rows, step, *ts):
+    """``step(pools, *ts)`` on layer ``li``'s k / v pools. Under a mesh
+    the step writes every slot's rows (``ts[-2:]``, this rank's slots,
+    are all-gathered over ``rows``, since the pool is replicated over
+    the batch axes) and runs on this rank's kv-heads of the pool where it
+    holds them; otherwise through the pool's whole view (all-gathered
+    over 'model' and its block written back: the einsum specs' rank or
+    block-pool layouts) with every head. Returns ``(step's result,
+    whether it ran on this rank's heads)``."""
+    pools = {"k": cache["k"][li], "v": cache["v"][li]}
+    if lay is None:
+        return step(pools, *ts), False
+    m = lay.mesh
+    if rows:
+        ts = ts[:-2] + tuple(col.all_gather_cat(t, 0, m, rows)
+                             for t in ts[-2:])
+    if heads_local and model_dim(pool_spec) == 2:
+        return step(pools, *ts), True
+    ts = attn.whole_heads(ts, heads_local, m)
+    specs = {"k": pool_spec, "v": pool_spec}
+    return attn.with_whole(pools, specs, m, lambda c: step(c, *ts)), False
+
+
+def _logits(params, cfg, x, lay, rows):
+    if lay is None:
+        return _unembed(params, cfg, x)
+    return head_logits(params, cfg, x, lay, rows)
+
+
+# ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
 def paged_prefill(params, cfg: ModelConfig, pc: pcache.PagedConfig,
                   tokens: torch.Tensor, lengths: torch.Tensor,
-                  cache: dict, table: torch.Tensor, backend=None):
+                  cache: dict, table: torch.Tensor, mesh=None,
+                  backend=None):
     """Process padded ragged prompts, writing K/V into the pool in place.
 
     tokens (B, S) right-padded; lengths (B,) true prompt lengths (0 =
@@ -108,24 +174,36 @@ def paged_prefill(params, cfg: ModelConfig, pc: pcache.PagedConfig,
 
     CUR-KV pools resolve the registry's ``paged_prefill`` variant
     (``backend`` pins "fold" or "reconstruct"); dense pools attend the raw
-    K/V, which is the payload."""
+    K/V, which is the payload. ``mesh``: None, a ``DeviceMesh`` (whole
+    params placed on entry) or a ``Placed``; the pool is then this rank's
+    shards (``init_paged_cache(mesh=)``), each rank runs its slots on its
+    shards and every rank gets the global logits."""
     check_supported(cfg)
     dev = _device_of(cache)
-    tokens = _to(tokens.long(), dev)
-    x = _embed(params, cfg, {"tokens": tokens})
-    B, S, _ = x.shape
+    B_all, S = tokens.shape
+    params, lay, rows, pspec = _entry(params, cfg, pc, cache, B_all, mesh)
+    m = lay.mesh if lay is not None else None
+    wrows = pcache.rows_to(
+        pcache.prompt_rows(table, lengths, S, pc.block_size), dev)
+    tokens = _to(take_rows(tokens, rows, m).long(), dev)
+    x = _embed(params, cfg, {"tokens": tokens}, lay)
+    B = x.shape[0]
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
         B, S)
     scale = cfg.resolved_head_dim ** -0.5
-    last = _to(torch.clamp(lengths.long() - 1, 0, S - 1), dev)
-    rows = pcache.rows_to(
-        pcache.prompt_rows(table, lengths, S, pc.block_size), dev)
+    last = _to(torch.clamp(take_rows(lengths, rows, m).long() - 1, 0, S - 1),
+               dev)
     be = resolve_prefill(backend)
-    for li, spec, p in iter_layer_params(params, cfg):
+
+    def write(pools, kc, vc):
+        pcache.scatter_rows(pools["k"], kc, wrows)
+        pcache.scatter_rows(pools["v"], vc, wrows)
+
+    for li, spec, p, ll in iter_layers(params, cfg, lay):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
         h = norm(x, p.get("norm1"), cfg)
-        q, k, v = attn.qkv_project(h, p, cfg, positions)
-        qg = attn._group_q(q, cfg.n_kv_heads)
+        q, k, v, hl = _project(h, p, cfg, positions, ll)
+        qg = attn._group_q(q, k.shape[2])
         qk, uk, qv, uv = _layer_proj(cache, li)
         if qk is None:                            # dense pool
             o = attn._mix(qg, k, v, positions, win, scale, cfg)
@@ -133,14 +211,12 @@ def paged_prefill(params, cfg: ModelConfig, pc: pcache.PagedConfig,
         else:                                     # CUR-KV pool
             o, kc, vc = be.fn(qg, k, v, positions, win, scale, cfg,
                               (qk, uk, qv, uv))
-        pcache.scatter_rows(cache["k"][li], kc, rows)
-        pcache.scatter_rows(cache["v"][li], vc, rows)
-        x = x + apply_w(o.reshape(B, S, -1), p["wo"])
-        x = channel_mix(x, p, spec, cfg)
+        _pools(cache, li, pspec, hl, lay, rows, write, kc, vc)
+        x = x + _out(o, hl, p, ll)
+        x = channel_mix(x, p, spec, cfg, ll)
     x = norm(x, params.get("final_norm"), cfg)
     x_last = x[torch.arange(B, device=dev), last][:, None]
-    logits = _unembed(params, cfg, x_last)[:, 0, :]
-    return logits, cache
+    return _logits(params, cfg, x_last, lay, rows)[:, 0, :], cache
 
 
 # ---------------------------------------------------------------------------
@@ -149,16 +225,17 @@ def paged_prefill(params, cfg: ModelConfig, pc: pcache.PagedConfig,
 
 def paged_decode(params, cfg: ModelConfig, pc: pcache.PagedConfig,
                  tokens: torch.Tensor, cache: dict, table: torch.Tensor,
-                 ctx_len: torch.Tensor, active: torch.Tensor,
+                 ctx_len: torch.Tensor, active: torch.Tensor, mesh=None,
                  paged_kernel: str = "auto"):
     """One decode step for every active slot, writing the pool in place:
     :func:`paged_verify` over one position.
 
     tokens (B, 1) last sampled token per slot; ctx_len (B,) tokens already
     in cache (the new token is written at that position); active (B,)
-    bool. Returns (logits (B, V), cache)."""
+    bool. Returns (logits (B, V), cache). ``mesh``: as
+    :func:`paged_prefill`'s."""
     logits, cache = paged_verify(params, cfg, pc, tokens, cache, table,
-                                 ctx_len, active, paged_kernel)
+                                 ctx_len, active, mesh, paged_kernel)
     return logits[:, 0], cache
 
 
@@ -169,7 +246,7 @@ def paged_decode(params, cfg: ModelConfig, pc: pcache.PagedConfig,
 @torch.no_grad()
 def paged_verify(params, cfg: ModelConfig, pc: pcache.PagedConfig,
                  tokens: torch.Tensor, cache: dict, table: torch.Tensor,
-                 ctx_len: torch.Tensor, active: torch.Tensor,
+                 ctx_len: torch.Tensor, active: torch.Tensor, mesh=None,
                  paged_kernel: str = "auto"):
     """One forward over ``S`` consecutive positions per slot -- the
     speculative verify step.
@@ -184,38 +261,47 @@ def paged_verify(params, cfg: ModelConfig, pc: pcache.PagedConfig,
     ``j`` equals the ``j``-th of S sequential :func:`paged_decode` calls.
     Returns (logits (B, S, V), cache); ``logits[:, j]`` is the target
     distribution of the token after position ``ctx + j``. ``paged_kernel``
-    picks the attention backend (``resolve_paged``)."""
+    picks the attention backend (``resolve_paged``); ``mesh``: as
+    :func:`paged_prefill`'s (the kernel then runs on this rank's slots
+    and kv-heads)."""
     check_supported(cfg)
     dev = _device_of(cache)
-    x = _embed(params, cfg, {"tokens": _to(tokens.long(), dev)})
-    B, S, _ = x.shape
-    rows = pcache.rows_to(pcache.span_rows(table, ctx_len, active, S,
-                                           pc.block_size), dev)
-    table_d = _to(table.to(torch.int32), dev)
-    ctx_d = _to(ctx_len.to(torch.int32), dev)
+    B_all, S = tokens.shape
+    params, lay, rows, pspec = _entry(params, cfg, pc, cache, B_all, mesh)
+    m = lay.mesh if lay is not None else None
+    wrows = pcache.rows_to(pcache.span_rows(table, ctx_len, active, S,
+                                            pc.block_size), dev)
+    x = _embed(params, cfg,
+               {"tokens": _to(take_rows(tokens, rows, m).long(), dev)}, lay)
+    B = x.shape[0]
+    table_d = _to(take_rows(table, rows, m).to(torch.int32), dev)
+    ctx_d = _to(take_rows(ctx_len, rows, m).to(torch.int32), dev)
     pos = ctx_d[:, None] + torch.arange(S, dtype=torch.int32,
                                         device=dev)[None]
     scale = cfg.resolved_head_dim ** -0.5
-    K = cfg.n_kv_heads
-    for li, spec, p in iter_layer_params(params, cfg):
+    for li, spec, p, ll in iter_layers(params, cfg, lay):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
         h = norm(x, p.get("norm1"), cfg)
-        q, k, v = attn.qkv_project(h, p, cfg, pos)        # (B, S, ., hd)
+        q, k, v, hl = _project(h, p, cfg, pos, ll)        # (B, S, ., hd)
         qk, uk, qv, uv = _layer_proj(cache, li)
-        pool_k = pcache.scatter_rows(
-            cache["k"][li], pcache.compress_kv(k, qk), rows)
-        pool_v = pcache.scatter_rows(
-            cache["v"][li], pcache.compress_kv(v, qv), rows)
-        qg = attn._group_q(q, K)                          # (B, S, K, G, hd)
-        G = qg.shape[3]
-        qflat = qg.permute(0, 2, 1, 3, 4).reshape(B, K, S * G, -1)
-        o = _paged_attn(qflat, pool_k, pool_v, table_d, ctx_d, uk, uv,
-                        scale, win, q_span=S, paged_kernel=paged_kernel)
-        o = o.reshape(B, K, S, G, -1).permute(0, 2, 1, 3, 4)
-        x = x + apply_w(o.reshape(B, S, -1), p["wo"])
-        x = channel_mix(x, p, spec, cfg)
+
+        def step(pools, q, kc, vc):
+            pool_k = pcache.scatter_rows(pools["k"], kc, wrows)
+            pool_v = pcache.scatter_rows(pools["v"], vc, wrows)
+            K = pool_k.shape[2]
+            qg = attn._group_q(q, K)                      # (B, S, K, G, hd)
+            G = qg.shape[3]
+            qflat = qg.permute(0, 2, 1, 3, 4).reshape(B, K, S * G, -1)
+            o = _paged_attn(qflat, pool_k, pool_v, table_d, ctx_d, uk, uv,
+                            scale, win, q_span=S, paged_kernel=paged_kernel)
+            return o.reshape(B, K, S, G, -1).permute(0, 2, 1, 3, 4)
+
+        o, hl = _pools(cache, li, pspec, hl, lay, rows, step, q,
+                       pcache.compress_kv(k, qk), pcache.compress_kv(v, qv))
+        x = x + _out(o, hl, p, ll)
+        x = channel_mix(x, p, spec, cfg, ll)
     x = norm(x, params.get("final_norm"), cfg)
-    return _unembed(params, cfg, x), cache                # (B, S, V)
+    return _logits(params, cfg, x, lay, rows), cache      # (B, S, V)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +311,7 @@ def paged_verify(params, cfg: ModelConfig, pc: pcache.PagedConfig,
 @torch.no_grad()
 def paged_decode_scan(params, cfg: ModelConfig, pc: pcache.PagedConfig,
                       tokens, cache, table, ctx, active, budgets,
-                      sampling, gen_starts, n_steps: int,
+                      sampling, gen_starts, n_steps: int, mesh=None,
                       greedy: bool = False, paged_kernel: str = "auto"):
     """``n_steps`` decode+sample iterations, a host loop over
     :func:`paged_decode`. Sampled tokens feed the next step on the device;
@@ -238,16 +324,18 @@ def paged_decode_scan(params, cfg: ModelConfig, pc: pcache.PagedConfig,
     slot. Row ``b`` of step ``i`` draws from
     ``request_generator(seed, rid, gen_starts[b] + i)``, so windows sample
     the same stream as single steps. ``greedy`` takes the argmax path.
+    ``mesh``: as :func:`paged_prefill`'s (whole params are placed once).
     Returns (tokens (n_steps, B), logprobs (n_steps, B), cache) on the
     cache's device."""
     dev = _device_of(cache)
+    params, mesh = place_on_entry(params, cfg, mesh)
     toks = _to(tokens, dev)
     ctx = ctx.clone()
     out_t, out_lp = [], []
     for i in range(n_steps):
         live = active & (gen_starts + i < budgets)
         logits, cache = paged_decode(params, cfg, pc, toks, cache, table,
-                                     ctx, live, paged_kernel)
+                                     ctx, live, mesh, paged_kernel)
         if greedy:
             s_toks, s_lps = greedy_tokens(logits)
         else:

@@ -19,6 +19,13 @@ and CUR-KV prompt attention: the serve CLI's ``--paged-kernel`` and
 ``--prefill-backend`` arrive here as arguments, not through the
 environment.
 
+``mesh`` (a ``DeviceMesh``) serves on placed weights: the params (and a
+draft's, per ``draft_param_pspecs``) are placed per ``param_pspecs`` and
+both pools made as this rank's shards (``init_paged_cache(mesh=)``, the
+kernel's kv-head layout) once, at construction; every rank submits the
+same requests and gets the same tokens, each running its slots on its
+shards. CUR-KV calibration runs on the whole params before placement.
+
 PyTorch runs eagerly, so there is no compiled-step cache; the pow-2
 prefill buckets stay, since they keep the flash kernel's sequence lengths
 few.
@@ -34,6 +41,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import Placed, draft_param_pspecs, place
+from repro_torch.models.model import place_on_entry
 from repro_torch.obs.metrics import Registry
 from repro_torch.obs.trace import (
     ENGINE_TRACK, NULL_TRACER, Tracer, request_track)
@@ -88,7 +97,7 @@ class Server:
                  tracer: Optional[Tracer] = None,
                  resilience: Optional[ResilienceConfig] = None,
                  chaos=None, device=None, paged_kernel: str = "auto",
-                 prefill_backend: Optional[str] = None):
+                 prefill_backend: Optional[str] = None, mesh=None):
         runtime.check_supported(cfg)
         self.device = resolve_device(device)
         self.paged_kernel = paged_kernel
@@ -119,7 +128,8 @@ class Server:
         self.chaos = chaos
         if chaos is not None:
             chaos.bind(obs=self.obs, tracer=self.tracer)
-        self.cache = pcache.init_paged_cache(cfg, self.pc, self.device)
+        self.cache = pcache.init_paged_cache(cfg, self.pc, self.device,
+                                             mesh=mesh)
         if calib_tokens is None:
             gen = torch.Generator().manual_seed(0)
             calib_tokens = torch.randint(
@@ -150,11 +160,21 @@ class Server:
                 n_blocks=self.pc.n_blocks,
                 max_blocks_per_seq=self.pc.max_blocks_per_seq)
             self.draft_cache = pcache.init_paged_cache(
-                self.draft_cfg, self.draft_pc, self.device)
+                self.draft_cfg, self.draft_pc, self.device, mesh=mesh)
             if self.draft_pc.cur_kv:
                 self.draft_cache = runtime.calibrate_kv(
                     draft_params, self.draft_cfg, self.draft_pc,
                     self.draft_cache, calib_tokens)
+        # under a mesh: params, draft params and both pools placed once
+        # (the pools above; CUR-KV calibration ran on the whole params)
+        self.mesh = self.draft_mesh = None
+        if mesh is not None:
+            self.params, self.mesh = place_on_entry(params, cfg, mesh)
+            if self.spec_k > 0:
+                specs = draft_param_pspecs(draft_params, self.draft_cfg,
+                                           mesh)
+                self.draft_params = place(draft_params, specs, mesh)
+                self.draft_mesh = Placed(mesh, specs)
 
         self._next_rid = 0
         self.finished: Dict[int, Request] = {}
@@ -441,13 +461,13 @@ class Server:
         tokens, lengths = torch.from_numpy(tokens), torch.from_numpy(lengths)
         logits, self.cache = runtime.paged_prefill(
             self.params, self.cfg, self.pc, tokens, lengths, self.cache,
-            table, backend=self._prefill_backend)
+            table, self.mesh, backend=self._prefill_backend)
         if self.spec_k:
             # the draft shares the block table, so its pool must hold the
             # same prefix KV the target's does
             _, self.draft_cache = runtime.paged_prefill(
                 self.draft_params, self.draft_cfg, self.draft_pc, tokens,
-                lengths, self.draft_cache, table,
+                lengths, self.draft_cache, table, self.draft_mesh,
                 backend=self._prefill_backend)
         toks, lps = self._sample_batch(
             logits, lambda s: len(s.req.out_tokens))
@@ -506,7 +526,7 @@ class Server:
         active = torch.from_numpy(sched.active_mask())
         logits, self.cache = runtime.paged_decode(
             self.params, self.cfg, self.pc, next_toks, self.cache, table,
-            ctx, active, self.paged_kernel)
+            ctx, active, self.mesh, self.paged_kernel)
         if self.spec_k:
             self._draft_sync(next_toks, table, ctx, active)
         toks, lps = self._sample_batch(
@@ -529,7 +549,8 @@ class Server:
         decaying after every fallback."""
         _, self.draft_cache = runtime.paged_verify(
             self.draft_params, self.draft_cfg, self.draft_pc, tokens,
-            self.draft_cache, table, ctx, active, self.paged_kernel)
+            self.draft_cache, table, ctx, active, self.draft_mesh,
+            self.paged_kernel)
 
     def _run_spec_decode(self) -> bool:
         """One draft-k/verify-1 window over all running slots. Returns
@@ -573,14 +594,14 @@ class Server:
         d_toks, d_probs, self.draft_cache = speculative.draft_tokens(
             self.draft_params, self.draft_cfg, self.draft_pc,
             torch.from_numpy(next_toks), self.draft_cache, table, ctx,
-            active, sampling, gen_starts, k, greedy=greedy,
-            paged_kernel=self.paged_kernel)
+            active, sampling, gen_starts, k, self.draft_mesh,
+            greedy=greedy, paged_kernel=self.paged_kernel)
         m1 = _mark(self.device)
         ver_in = torch.cat([torch.from_numpy(next_toks).to(
             d_toks.device, non_blocking=True), d_toks], dim=1)
         emitted, n_emit, lps, self.cache = speculative.verify_tokens(
             self.params, self.cfg, self.pc, ver_in, d_toks, d_probs,
-            self.cache, table, ctx, active, sampling, gen_starts,
+            self.cache, table, ctx, active, sampling, gen_starts, self.mesh,
             greedy=greedy, paged_kernel=self.paged_kernel)
         m2 = _mark(self.device)
         emitted = emitted.cpu().numpy()             # the window's one sync
@@ -663,7 +684,7 @@ class Server:
             self.params, self.cfg, self.pc, torch.from_numpy(next_toks),
             self.cache, table, ctx, active, torch.from_numpy(budgets),
             sampling, torch.from_numpy(gen_starts), n_steps=k,
-            greedy=greedy, paged_kernel=self.paged_kernel)
+            mesh=self.mesh, greedy=greedy, paged_kernel=self.paged_kernel)
         toks_seq = toks_seq.cpu().numpy()          # the window's one sync
         lps_seq = lps_seq.float().cpu().numpy()
         if self.spec_k:

@@ -48,7 +48,9 @@ import numpy as np
 import torch
 
 from repro_torch.bridge import tree_map
+from repro_torch.models.model import place_on_entry
 from repro_torch.serving import runtime
+from repro_torch.serving.paged_cache import host_math
 from repro_torch.serving.sampling import _filtered_logits
 
 # the JAX package's tags: the three speculative draw streams
@@ -121,8 +123,8 @@ def _on(sampling, dev):
 
 @torch.no_grad()
 def draft_tokens(params, cfg, pc, tokens, cache, table, ctx, active,
-                 sampling, gen_starts, k: int, greedy: bool = False,
-                 paged_kernel: str = "auto"):
+                 sampling, gen_starts, k: int, mesh=None,
+                 greedy: bool = False, paged_kernel: str = "auto"):
     """k autoregressive draft steps through the forked tables: a host loop
     of :func:`runtime.paged_decode`, each step's tokens feeding the next on
     the device.
@@ -132,10 +134,14 @@ def draft_tokens(params, cfg, pc, tokens, cache, table, ctx, active,
     temps, top_ks, top_ps), one entry per slot (unused under ``greedy``).
     Returns ``(d_toks (B, k), d_probs, cache)`` on the cache's device:
     ``d_probs`` (B, k, V) is the *filtered* draft distribution of each
-    step (what the accept test divides by), None under ``greedy``."""
+    step (what the accept test divides by), None under ``greedy``.
+    ``mesh``: as ``runtime.paged_prefill``'s, for the draft's params
+    (``draft_param_pspecs``) and pool; whole params are placed once."""
     dev = cache["k"].device
+    params, mesh = place_on_entry(params, cfg, mesh)
     toks = torch.as_tensor(tokens).to(dev, non_blocking=True)
-    ctx = torch.as_tensor(ctx).clone()
+    with host_math():
+        ctx = torch.as_tensor(ctx).clone()
     if not greedy:
         temps, top_ks, top_ps = _on(sampling, dev)
         u = window_uniforms(sampling[0], sampling[1], gen_starts, active,
@@ -143,7 +149,7 @@ def draft_tokens(params, cfg, pc, tokens, cache, table, ctx, active,
     out_t, out_p = [], []
     for j in range(k):
         logits, cache = runtime.paged_decode(params, cfg, pc, toks, cache,
-                                             table, ctx, active,
+                                             table, ctx, active, mesh,
                                              paged_kernel)
         lg = logits.float()
         if greedy:
@@ -156,22 +162,23 @@ def draft_tokens(params, cfg, pc, tokens, cache, table, ctx, active,
             out_p.append(probs)
         out_t.append(s_toks)
         toks = s_toks[:, None]
-        ctx = ctx + 1
+        with host_math():
+            ctx = ctx + 1
     # one extra KV-only step: the loop wrote positions ctx .. ctx+k-1, but
     # a fully accepted window commits through ctx+k -- without d_k's KV
     # here the NEXT window drafts against a stale position. When the window
     # is partly accepted the write lands past the committed context (dead,
     # overwritten later).
     _, cache = runtime.paged_decode(params, cfg, pc, toks, cache, table,
-                                    ctx, active, paged_kernel)
+                                    ctx, active, mesh, paged_kernel)
     d_probs = None if greedy else torch.stack(out_p, dim=1)
     return torch.stack(out_t, dim=1), d_probs, cache
 
 
 @torch.no_grad()
 def verify_tokens(params, cfg, pc, tokens, d_toks, d_probs, cache, table,
-                  ctx, active, sampling, gen_starts, greedy: bool = False,
-                  paged_kernel: str = "auto"):
+                  ctx, active, sampling, gen_starts, mesh=None,
+                  greedy: bool = False, paged_kernel: str = "auto"):
     """Single-forward verification of a drafted window.
 
     tokens (B, k+1): ``[next_token, d_1 .. d_k]``, the verify forward's
@@ -180,11 +187,12 @@ def verify_tokens(params, cfg, pc, tokens, d_toks, d_probs, cache, table,
     ``(emitted (B, k+1), n_emit (B,), lps (B, k+1), cache)`` on the cache's
     device: row i's emitted tokens are ``emitted[i, :n_emit[i]]`` (``a``
     accepted draft tokens + 1 correction/bonus), ``lps`` their untempered
-    target logprobs."""
+    target logprobs. ``mesh``: as ``runtime.paged_prefill``'s."""
     B, S = tokens.shape
     k = S - 1
     logits, cache = runtime.paged_verify(params, cfg, pc, tokens, cache,
-                                         table, ctx, active, paged_kernel)
+                                         table, ctx, active, mesh,
+                                         paged_kernel)
     lg = logits.float()                                    # (B, k+1, V)
     dev = lg.device
     logp = torch.log_softmax(lg, dim=-1)

@@ -7,6 +7,7 @@ import numpy as np
 
 WORLD = 8
 MESHES = {"dm": ((2, 4), ("data", "model")),
+          "md": ((4, 2), ("data", "model")),
           "pdm": ((2, 2, 2), ("pod", "data", "model"))}
 
 # name: (mesh, E, k, capacity_factor, B, S, layout) on mixtral's SMOKE
@@ -120,6 +121,56 @@ GEN = dict(model="mixtral-a2a", B=4, S=8, new=4, fwd_S=16)
 RECOVERY = dict(failed=(1, 5), tp=2)
 
 
+# placed serving: the engine's prefill + SERVE_STEPS greedy decode steps on
+# a cache placed per cache_pspecs, and the paged runtime's prefill +
+# SERVE_STEPS decode steps + one verify window on a pool placed per
+# paged_cache_pspecs; name -> (model, mesh, paged pool specs: "kernel",
+# "einsum" or None for no paged run). llama's SMOKE has 2 kv heads of 16:
+# model 2 holds a head a rank, model 4 cuts head_dim (the cache's head_dim
+# fallback; the kernel's pool replicates). "hd18" (head_dim 18) divides
+# neither, so its cache falls back to the cache length. mamba2 runs on
+# local heads (8 over 2 and 4; its B / C tails shard by feature); "h2" (2
+# heads of 64) gathers. mixtral (local attention, window 16, and MoE:
+# the a2a body in prefill, the TP body in decode) wraps its ring buffer.
+SERVE = {
+    "llama-dm": ("llama", "dm", "kernel"),
+    "llama-md": ("llama", "md", "kernel"),
+    "llama-einsum-dm": ("llama", "dm", "einsum"),
+    "hd18-dm": ("llama-hd18", "dm", None),
+    "mamba2-dm": ("mamba2", "dm", None),
+    "mamba2-md": ("mamba2", "md", None),
+    "mamba2-h2-dm": ("mamba2-h2", "dm", None),
+    "mixtral-dm": ("mixtral-serve", "dm", "kernel"),
+    "mixtral-md": ("mixtral-serve", "md", "kernel"),
+}
+SERVE_MODELS = {
+    "llama": ("llama3.1-8b", {}),
+    "llama-hd18": ("llama3.1-8b", dict(head_dim=18)),
+    "mamba2": ("mamba2-1.3b", {}),
+    "mamba2-h2": ("mamba2-1.3b", dict(ssm_head_dim=64)),
+    "mixtral-serve": ("mixtral-8x22b", dict(moe_impl="a2a",
+                                            capacity_factor=8.0)),
+}
+SERVE_STEPS = 3
+SERVE_B, SERVE_S = 4, 16                    # prompts; the cache holds S + 4
+PAGED_BS, PAGED_MAXB = 8, 4                 # block size, table width
+PAGED_LENS = (16, 11, 16, 5)                # ragged prompts
+SPEC_K = 2                                  # the verify window's drafts
+
+
+def serve_inputs(vocab, name):
+    """(prompts (B, S), paged draft tokens (B, SPEC_K)) of a SERVE case."""
+    rng = np.random.default_rng(30 + sorted(SERVE).index(name))
+    return (rng.integers(0, vocab, (SERVE_B, SERVE_S)).astype(np.int32),
+            rng.integers(0, vocab, (SERVE_B, SPEC_K)).astype(np.int32))
+
+
+def paged_table():
+    """Slot b's blocks: b * PAGED_MAXB onwards (every slot's table full)."""
+    return np.arange(SERVE_B * PAGED_MAXB, dtype=np.int32).reshape(
+        SERVE_B, PAGED_MAXB)
+
+
 def moe_inputs(name):
     """(x (B, S, D), p {router, w_gate, w_up, w_down}) of a MoE case."""
     _, E, _, _, B, S, _ = MOE_CASES[name]
@@ -180,8 +231,12 @@ def gen_inputs(vocab):
 
 
 def model_args(model):
-    """(arch, overrides) of a MODELS or PLACED_MODELS entry."""
-    return MODELS[model] if model in MODELS else PLACED_MODELS[model]
+    """(arch, overrides) of a MODELS, PLACED_MODELS or SERVE_MODELS
+    entry."""
+    for table in (MODELS, PLACED_MODELS, SERVE_MODELS):
+        if model in table:
+            return table[model]
+    raise KeyError(model)
 
 
 def cur_params(params):

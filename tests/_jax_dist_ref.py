@@ -217,6 +217,123 @@ def restore(inp):
     return out
 
 
+def _sh(mesh, spec):
+    return NamedSharding(mesh, spec or P())
+
+
+def serve(inp):
+    """Each SERVE case as repro/launch/dryrun.py lowers its cells: prefill
+    and decode under jit(in_shardings=(p_sh, c_sh, b_sh[, pos_sh]),
+    out_shardings=(None, c_sh)), the paged steps with the pool and the
+    slot inputs per paged_cache_pspecs / paged_decode_pspecs; the global
+    logits and tokens, and the final cache / pool with their device
+    slices. The cases run on 4 threads (XLA compiles and runs outside
+    the GIL)."""
+    with ThreadPoolExecutor(4) as pool:
+        return dict(zip(dc.SERVE, pool.map(
+            lambda name: _serve_case(inp, name), dc.SERVE)))
+
+
+def _serve_case(inp, name):
+    from repro.models.model import decode_step, init_cache, prefill
+    from repro.serving import runtime as srt
+    from repro.serving.paged_cache import PagedConfig, init_paged_cache
+    from repro.serving.speculative import verify_tokens
+    model, mname, pool = dc.SERVE[name]
+    mesh = mesh_of(mname)
+    cfg = cfg_of(model)
+    params = jax.tree.map(jnp.asarray, inp["serve_params"][model])
+    p_sh = shd.to_named(shd.param_pspecs(params, cfg, mesh), mesh)
+    params = jax.device_put(params, p_sh)
+    prompts, drafts = (jnp.asarray(a) for a in
+                       dc.serve_inputs(cfg.vocab_size, name))
+    B, S = prompts.shape
+    shape = ShapeConfig("serve", S, B, "prefill")
+    cache = init_cache(cfg, B, S + dc.SERVE_STEPS + 1)
+    c_sh = shd.to_named(shd.cache_pspecs(cache, cfg, shape, mesh), mesh)
+    b_sh = {"tokens": _sh(mesh, shd.batch_pspecs(
+        cfg, shape, mesh)["tokens"])}
+    db_specs, pos_spec = shd.decode_batch_pspecs(cfg, shape, mesh)
+    pf = jax.jit(lambda p, c, b, cfg=cfg, mesh=mesh: prefill(
+        p, cfg, b, c, mesh), in_shardings=(p_sh, c_sh, b_sh),
+        out_shardings=(None, c_sh))
+    st = jax.jit(lambda p, c, b, pos, cfg=cfg, mesh=mesh: decode_step(
+        p, cfg, b, c, pos, mesh), in_shardings=(
+            p_sh, c_sh, {"tokens": _sh(mesh, db_specs["tokens"])},
+            _sh(mesh, pos_spec)), out_shardings=(None, c_sh))
+    logits, cache = pf(params, jax.device_put(cache, c_sh),
+                       {"tokens": prompts})
+    lg, toks = [np.asarray(logits)], []
+    for i in range(dc.SERVE_STEPS):
+        nxt = jnp.argmax(logits, -1).astype(jnp.int32)
+        toks.append(np.asarray(nxt))
+        pos = jnp.full((B, 1), S + i, jnp.int32)
+        logits, cache = st(params, cache, {"tokens": nxt[:, None]}, pos)
+        lg.append(np.asarray(logits))
+    r = {"dense": {"logits": lg, "tokens": toks,
+                   "cache": [np.asarray(a)
+                             for a in jax.tree.leaves(cache)],
+                   "slices": slices(cache, mesh)}}
+    if pool is not None:
+        kern = pool == "kernel"
+        pc = PagedConfig(block_size=dc.PAGED_BS,
+                         n_blocks=B * dc.PAGED_MAXB,
+                         max_blocks_per_seq=dc.PAGED_MAXB)
+        pool_c = init_paged_cache(cfg, pc)
+        pc_sh = shd.to_named(shd.paged_cache_pspecs(
+            pool_c, cfg, mesh, kernel=kern), mesh)
+        t_sp, tb_sp, cx_sp, ac_sp = (
+            _sh(mesh, a) for a in shd.paged_decode_pspecs(
+                cfg, B, dc.PAGED_MAXB, mesh, kernel=kern))
+        pre_sh = _sh(mesh, shd.batch_pspecs(cfg, shape, mesh)["tokens"])
+        ppf = jax.jit(lambda p, t, ln, c, tb, cfg=cfg, pc=pc, mesh=mesh:
+                      srt.paged_prefill(p, cfg, pc, t, ln, c, tb, mesh),
+                      in_shardings=(p_sh, pre_sh, cx_sp, pc_sh, tb_sp),
+                      out_shardings=(None, pc_sh))
+        pst = jax.jit(lambda p, t, c, tb, cx, ac, cfg=cfg, pc=pc,
+                      mesh=mesh: srt.paged_decode(p, cfg, pc, t, c, tb,
+                                                  cx, ac, mesh),
+                      in_shardings=(p_sh, t_sp, pc_sh, tb_sp, cx_sp,
+                                    ac_sp), out_shardings=(None, pc_sh))
+        zeros = (jnp.zeros((B,), jnp.float32), jnp.zeros((B,), jnp.int32),
+                 jnp.ones((B,), jnp.float32))
+        keys = jnp.zeros((B, 2), jnp.uint32)
+
+        def ver(p, w, d, c, tb, cx, ac, cfg=cfg, pc=pc, mesh=mesh):
+            return verify_tokens(p, cfg, pc, w, d, None, c, tb, cx, ac,
+                                 keys, jnp.zeros((B,), jnp.int32),
+                                 *zeros, mesh, greedy=True)
+
+        vst = jax.jit(ver, in_shardings=(
+            p_sh, _sh(mesh, P(shd._dp_axes(mesh), None)),
+            _sh(mesh, P(shd._dp_axes(mesh), None)), pc_sh, tb_sp, cx_sp,
+            ac_sp), out_shardings=(None, None, None, pc_sh))
+        table = jnp.asarray(dc.paged_table())
+        ctx = jnp.asarray(dc.PAGED_LENS, jnp.int32)
+        active = jnp.ones((B,), bool)
+        logits, pool_c = ppf(params, prompts, ctx,
+                             jax.device_put(pool_c, pc_sh), table)
+        lg, toks = [np.asarray(logits)], []
+        for i in range(dc.SERVE_STEPS):
+            nxt = jnp.argmax(logits, -1).astype(jnp.int32)
+            toks.append(np.asarray(nxt))
+            logits, pool_c = pst(params, nxt[:, None], pool_c, table,
+                                 ctx, active)
+            lg.append(np.asarray(logits))
+            ctx = ctx + 1
+        nxt = jnp.argmax(logits, -1).astype(jnp.int32)
+        win = jnp.concatenate([nxt[:, None], drafts], 1)
+        emitted, n_emit, _, pool_c = vst(params, win, drafts, pool_c,
+                                         table, ctx, active)
+        kv = {"k": pool_c["k"], "v": pool_c["v"]}
+        r["paged"] = {"logits": lg, "tokens": toks,
+                      "emitted": np.asarray(emitted),
+                      "n_emit": np.asarray(n_emit),
+                      "pool": [np.asarray(kv["k"]), np.asarray(kv["v"])],
+                      "slices": slices(kv, mesh)}
+    return r
+
+
 def main(inp_path, out_path):
     with open(inp_path, "rb") as f:
         inp = pickle.load(f)
@@ -261,6 +378,7 @@ def main(inp_path, out_path):
     out["repair"] = repair(inp)
     out["placed"] = placed(inp)
     out["restore"] = restore(inp)
+    out["serve"] = serve(inp)
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 

@@ -224,6 +224,79 @@ def _generate(meshes, inp):
     return {"forward": _np(logits), "generate": _np(toks)}
 
 
+def _serve(meshes, inp):
+    """Each SERVE case: the engine's prefill and greedy decode steps on
+    placed params and a placed cache, then (for attention models) the
+    paged runtime's prefill, decode steps and one greedy verify window on
+    a placed pool. Returns the global logits and tokens and this rank's
+    cache and pool shards."""
+    from repro_torch import bridge
+    from repro_torch.dist import tree_flatten
+    from repro_torch.models.model import (
+        decode_step, init_cache, place_on_entry, prefill)
+    from repro_torch.serving import runtime
+    from repro_torch.serving.paged_cache import (
+        PagedConfig, init_paged_cache)
+    from repro_torch.serving.speculative import verify_tokens
+    out = {}
+    for name, (model, mname, pool) in dc.SERVE.items():
+        mesh = meshes[mname]
+        cfg = _cfg(model)
+        whole = bridge.to_torch(inp["serve_params"][model], "cpu")
+        params, lay = place_on_entry(whole, cfg, mesh)
+        prompts, drafts = (torch.from_numpy(a).long()
+                           for a in dc.serve_inputs(cfg.vocab_size, name))
+        B, S = prompts.shape
+        r = {}
+        with torch.no_grad():
+            cache = init_cache(cfg, B, S + dc.SERVE_STEPS + 1, "cpu",
+                               mesh=lay)
+            logits, cache = prefill(params, cfg, {"tokens": prompts}, cache,
+                                    lay)
+            lg, toks = [_np(logits)], []
+            for i in range(dc.SERVE_STEPS):
+                nxt = logits.argmax(-1)
+                toks.append(_np(nxt))
+                pos = torch.full((B, 1), S + i, dtype=torch.int32)
+                logits, cache = decode_step(params, cfg,
+                                            {"tokens": nxt[:, None]}, cache,
+                                            pos, lay)
+                lg.append(_np(logits))
+            r["dense"] = {"logits": lg, "tokens": toks,
+                          "cache": [_np(t) for t in tree_flatten(cache)]}
+            if pool is not None:
+                pc = PagedConfig(block_size=dc.PAGED_BS,
+                                 n_blocks=B * dc.PAGED_MAXB,
+                                 max_blocks_per_seq=dc.PAGED_MAXB)
+                cache = init_paged_cache(cfg, pc, "cpu", mesh=lay,
+                                         kernel=pool == "kernel")
+                table = torch.from_numpy(dc.paged_table())
+                lens = torch.tensor(dc.PAGED_LENS)
+                logits, cache = runtime.paged_prefill(
+                    params, cfg, pc, prompts, lens, cache, table, lay)
+                lg, toks, ctx = [_np(logits)], [], lens.clone()
+                active = torch.ones((B,), dtype=torch.bool)
+                for i in range(dc.SERVE_STEPS):
+                    nxt = logits.argmax(-1)
+                    toks.append(_np(nxt))
+                    logits, cache = runtime.paged_decode(
+                        params, cfg, pc, nxt[:, None], cache, table, ctx,
+                        active, lay)
+                    lg.append(_np(logits))
+                    ctx = ctx + 1
+                nxt = logits.argmax(-1)
+                win = torch.cat([nxt[:, None], drafts], 1)
+                emitted, n_emit, _, cache = verify_tokens(
+                    params, cfg, pc, win, drafts, None, cache, table, ctx,
+                    active, None, np.zeros(B, np.int64), lay, greedy=True)
+                r["paged"] = {"logits": lg, "tokens": toks,
+                              "emitted": _np(emitted),
+                              "n_emit": _np(n_emit),
+                              "pool": [_np(cache["k"]), _np(cache["v"])]}
+        out[name] = r
+    return out
+
+
 def _psum(meshes):
     from repro_torch.dist.collectives import axes_index
     from repro_torch.dist.compression import compressed_psum, ef_psum_grads
@@ -244,6 +317,20 @@ def _psum(meshes):
         acc += total["w"]
     out["ef_mean"] = _np(acc / (dc.EF_ROUNDS * dc.WORLD))
     return out
+
+
+def _funnels(meshes):
+    """all_gather_cat and all_to_all over 'model' on a non-contiguous
+    operand (a transposed block), and the record they leave."""
+    from repro_torch.dist import collectives as col
+    mesh = meshes["dm"]
+    x = (torch.arange(24, dtype=torch.float32).reshape(6, 4)
+         + 100 * dist.get_rank()).t()
+    with col.recording() as rec:
+        gathered = col.all_gather_cat(x, 0, mesh, "model")
+        swapped = col.all_to_all(x, mesh, "model")
+    return {"gather": _np(gathered), "a2a": _np(swapped),
+            "record": dict(rec)}
 
 
 def _q8_sharded(meshes):
@@ -302,6 +389,7 @@ def _rank(rank, inp_path, outdir):
         res = {}
         res["moe"], res["dispatch"] = _moe(meshes)
         res["psum"] = _psum(meshes)
+        res["funnels"] = _funnels(meshes)
         res["slices"] = _distribute(meshes)
         res["q8"] = _q8_sharded(meshes)
         res["train"] = _train(meshes, inp)
@@ -311,6 +399,7 @@ def _rank(rank, inp_path, outdir):
         res["placed"] = _placed(meshes, inp)
         res["restore"] = _restore(meshes, inp)
         res["evaluate"] = _evaluate(meshes, inp)
+        res["serve"] = _serve(meshes, inp)
         with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:

@@ -35,7 +35,16 @@ meanwhile. The cases:
   - CheckpointManager.restore(shardings=): each rank's blocks equal JAX's
     device shards bit for bit;
   - perplexity and token accuracy on placed params equal the one-device
-    values.
+    values;
+  - placed serving (llama, mamba2 and mixtral SMOKEs on the 2 x 4 and
+    4 x 2 meshes, and the head_dim / cache-length / gathered-heads
+    fallbacks): the engine's prefill + 3 greedy decode steps on a cache
+    placed per cache_pspecs, the paged runtime's prefill + 3 decode steps
+    + a verify window on a pool placed per paged_cache_pspecs (the
+    kernel's layout and the einsum specs'): logits within 2e-5 of JAX's
+    jit(in_shardings=...) steps, greedy and emitted tokens equal, and
+    each rank's cache and pool shards within 2e-5 of JAX's device slice
+    at its mesh position.
 """
 import os
 import pickle
@@ -159,6 +168,10 @@ def run(tmp_path_factory):
            "gen_params": params[dc.GEN["model"]],
            "ckpt_dir": str(tmp / "ckpt")}
     inp["grad_params"], inp["placed_batches"] = _placed_inputs(params)
+    inp["serve_params"] = {
+        m: jax.device_get(jax_init_params(jax.random.PRNGKey(40 + i),
+                                          _cfg(m)))
+        for i, m in enumerate(dc.SERVE_MODELS)}
     inp["placed_params"] = inp["grad_params"]
     whole = jax.tree.map(jnp.asarray, params[dc.RESTORE[0]])
     JaxManager(inp["ckpt_dir"]).save(0, {
@@ -282,6 +295,26 @@ def test_ef_psum_mean_converges_to_true_mean(run):
     for r in run["ranks"]:
         got = r["psum"]["ef_mean"]
         assert np.abs(got - true).max() / np.abs(true).max() < 0.02
+
+
+def test_funnels_take_non_contiguous_operands(run):
+    """A transposed block through all_gather_cat and all_to_all over
+    'model' on the 2 x 4 mesh (rank = data * 4 + model): the model group's
+    blocks in order, and row j of the swap from model rank j; the record
+    notes each call's operand bytes once."""
+    n_model = dc.MESHES["dm"][0][1]
+    for r, res in enumerate(run["ranks"]):
+        d, m = divmod(r, n_model)
+        xs = [(np.arange(24, dtype=np.float32).reshape(6, 4)
+               + 100 * (d * n_model + j)).T for j in range(n_model)]
+        got = res["funnels"]
+        assert np.array_equal(got["gather"], np.concatenate(xs, 0)), r
+        assert np.array_equal(got["a2a"],
+                              np.stack([x[m] for x in xs])), r
+        assert got["record"] == {
+            "all-gather": 96, "all-reduce": 0, "reduce-scatter": 0,
+            "all-to-all": 96, "collective-permute": 0, "count": 2,
+            "total": 192}, r
 
 
 @pytest.mark.parametrize("name", list(dc.DIST_SPECS))
@@ -541,3 +574,70 @@ def test_evaluate_on_placed_params(run):
             r["evaluate"]["whole"]
         assert abs(ppl - ppl1) <= 2e-5 * ppl1, (ppl, ppl1)
         assert acc == acc1
+
+
+# ---------------------------------------------------------------------------
+# placed serving: the engine and the paged runtime on placed caches
+# ---------------------------------------------------------------------------
+
+def _shards_close(got, j, i, tol=2e-5):
+    """This rank's leaves against the slices of JAX's device at mesh
+    position ``i``."""
+    want = _want({"leaves": j[0], "slices": j[1]}, i)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape, (a.shape, b.shape)
+        if a.dtype.kind in "iub":
+            assert np.array_equal(a, b)
+        else:
+            assert_close(a, b, tol)
+
+
+@pytest.mark.parametrize("name", list(dc.SERVE))
+def test_placed_engine_matches_jax(run, name):
+    """prefill + greedy decode steps on placed params and cache: the
+    global logits on every rank within 2e-5 of JAX's, the tokens equal."""
+    j = run["jax"]["serve"][name]["dense"]
+    for r in run["ranks"]:
+        got = r["serve"][name]["dense"]
+        for a, b in zip(got["logits"], j["logits"]):
+            assert_close(a, b, 2e-5)
+        for a, b in zip(got["tokens"], j["tokens"]):
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", list(dc.SERVE))
+def test_placed_cache_shards_match_jax(run, name):
+    j = run["jax"]["serve"][name]["dense"]
+    for i, r in enumerate(run["ranks"]):
+        _shards_close(r["serve"][name]["dense"]["cache"],
+                      (j["cache"], j["slices"]), i)
+
+
+_PAGED = [n for n, c in dc.SERVE.items() if c[2] is not None]
+
+
+@pytest.mark.parametrize("name", _PAGED)
+def test_placed_paged_steps_match_jax(run, name):
+    """The paged prefill, decode steps and greedy verify window on a
+    placed pool: logits within 2e-5, greedy and emitted tokens equal."""
+    j = run["jax"]["serve"][name]["paged"]
+    for r in run["ranks"]:
+        got = r["serve"][name]["paged"]
+        for a, b in zip(got["logits"], j["logits"]):
+            assert_close(a, b, 2e-5)
+        for a, b in zip(got["tokens"], j["tokens"]):
+            assert np.array_equal(a, b)
+        n = got["n_emit"]
+        assert np.array_equal(n, j["n_emit"])
+        for row, k in enumerate(n):
+            assert np.array_equal(got["emitted"][row, :k],
+                                  j["emitted"][row, :k])
+
+
+@pytest.mark.parametrize("name", _PAGED)
+def test_placed_pool_shards_match_jax(run, name):
+    j = run["jax"]["serve"][name]["paged"]
+    for i, r in enumerate(run["ranks"]):
+        _shards_close(r["serve"][name]["paged"]["pool"],
+                      (j["pool"], j["slices"]), i)

@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "kernels.flash_attention.backward", "plan.sensitivity",
                  "plan.allocate", "plan.progressive", "roofline.analysis",
                  "launch.plan", "dist.sharding", "dist.elastic",
-                 "dist.collectives", "launch.mesh", "launch.specs"):
+                 "dist.collectives", "launch.mesh", "launch.specs",
+                 "launch.dryrun", "kernels._fake"):
         assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -123,6 +124,36 @@ def test_cache_engine_checkpoint_default_to_cuda_and_raise_without_it(
     assert device_memory_snapshot() == {}
 
 
+def test_placed_serving_defaults_to_cuda_and_raises_without_it(no_cuda):
+    """Placed serving resolves its device as the unplaced entry points do:
+    the placed dense cache, the placed pool and ``Server(mesh=)`` default
+    to ``cuda`` and raise without a card (a 1 x 1 mesh's specs need no
+    process group); asked for the CPU, the shards are made there. The dry
+    run's fake tensors default to ``cuda`` too."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serving import PagedConfig, Server
+    from repro_torch.serving.paged_cache import init_paged_cache
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    cfg = get_smoke("llama3.1-8b")
+    pc = PagedConfig(block_size=4, n_blocks=8, max_blocks_per_seq=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 1, 8, mesh=mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_paged_cache(cfg, pc, mesh=mesh)
+    params = init_params(0, cfg, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(params, cfg, pc, mesh=mesh)
+    cache = init_cache(cfg, 2, 8, "cpu", mesh=mesh)
+    pool = init_paged_cache(cfg, pc, "cpu", mesh=mesh)
+    for t in repro_torch.bridge.flatten_up_to(cache, cache) + [pool["k"]]:
+        assert t.device.type == "cpu"
+    assert pool["k"].shape == (cfg.n_layers, 8, 4, cfg.n_kv_heads,
+                               cfg.resolved_head_dim)
+    assert dryrun.parser().parse_args([]).device == "cuda"
+
+
 def test_paged_kernel_modes():
     """``off`` is the caller's explicit choice of the plain version on any
     pool; ``auto`` and ``on`` take the kernel for a CUDA pool, and ``on``
@@ -178,8 +209,13 @@ def _plain_called(*a, **k):
     raise AssertionError("the plain version ran for a CUDA tensor")
 
 
+def _fake_called(*a, **k):
+    raise AssertionError("the shape-only path ran for a real tensor")
+
+
 def test_cur_matmul_op_on_cuda_launches_or_raises(monkeypatch):
     monkeypatch.setattr(cm_ops, "cur_matmul_ref", _plain_called)
+    monkeypatch.setattr(cm_ops._fake, "cur_matmul", _fake_called)
     monkeypatch.setattr(cm_kernel, "_lib", _no_library)
     before = cm_kernel.launches
     x, cu, r = (_FakeCuda(torch.zeros(s)) for s in
@@ -187,11 +223,13 @@ def test_cur_matmul_op_on_cuda_launches_or_raises(monkeypatch):
     with pytest.raises((RuntimeError, AssertionError)) as e:
         cm_ops.cur_matmul_op(x, cu, r)
     assert "plain version" not in str(e.value)
+    assert "shape-only" not in str(e.value)
     assert cm_kernel.launches == before
 
 
 def test_flash_attention_op_on_cuda_launches_or_raises(monkeypatch):
     monkeypatch.setattr(fa_ops, "flash_attention_ref", _plain_called)
+    monkeypatch.setattr(fa_ops._fake, "flash_attention", _fake_called)
     monkeypatch.setattr(fa_kernel, "_lib", _no_library)
     before = fa_kernel.launches
     q = _FakeCuda(torch.zeros((1, 4, 32, 16)))
@@ -199,11 +237,13 @@ def test_flash_attention_op_on_cuda_launches_or_raises(monkeypatch):
     with pytest.raises((RuntimeError, AssertionError)) as e:
         fa_ops.flash_attention_op(q, k, v)
     assert "plain version" not in str(e.value)
+    assert "shape-only" not in str(e.value)
     assert fa_kernel.launches == before
 
 
 def test_paged_attention_op_on_cuda_launches_or_raises(monkeypatch):
     monkeypatch.setattr(pa_ops, "paged_attention_ref", _plain_called)
+    monkeypatch.setattr(pa_ops._fake, "paged_attention", _fake_called)
     monkeypatch.setattr(pa_kernel, "_lib", _no_library)
     before = pa_kernel.launches
     q = _FakeCuda(torch.zeros((2, 2, 2, 16)))
@@ -213,6 +253,7 @@ def test_paged_attention_op_on_cuda_launches_or_raises(monkeypatch):
     with pytest.raises((RuntimeError, AssertionError)) as e:
         pa_ops.paged_attention_op(q, kp, vp, table, ctx)
     assert "plain version" not in str(e.value)
+    assert "shape-only" not in str(e.value)
     assert pa_kernel.launches == before
 
 

@@ -360,29 +360,8 @@ def test_port_stand_ins_hold_no_memory():
 
 
 # ---------------------------------------------------------------------------
-# the serving placement, CUR dispatch under a mesh, placement on entry
+# CUR dispatch under a mesh, placement on entry
 # ---------------------------------------------------------------------------
-
-def test_moe_pspecs_keep_only_the_routed_experts():
-    """moe_pspecs shards the router and the routed experts as
-    param_pspecs does and replicates every other leaf (attention,
-    embedding, head, norms, a shared expert)."""
-    cfg = get_smoke("mixtral-8x22b")
-    _, tm = _meshes("16x16")
-    params = tsp.param_specs(cfg)
-    full = tshd.param_pspecs(params, cfg, tm)
-    moe = tshd.moe_pspecs(params, cfg, tm)
-    for gi, group in enumerate(full["groups"]):
-        for pi, specs in enumerate(group):
-            for k, spec in specs.items():
-                want = spec if k in ("router", "w_gate", "w_up",
-                                     "w_down") else tshd.map_specs(
-                                         lambda _: None, spec)
-                assert moe["groups"][gi][pi][k] == want, k
-            assert any(moe["groups"][gi][pi][k] is not None
-                       for k in ("w_gate", "w_up", "w_down"))
-    assert moe["embed"] is None and full["embed"] is not None
-
 
 def _one_mesh():
     from repro_torch.launch.mesh import make_local_mesh
