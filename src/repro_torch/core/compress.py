@@ -18,9 +18,21 @@ place in network order, so both pipelines make identical selections.
 
 Selection strategies (paper App. D.2): ``wanda_deim`` (CURing) | ``wanda``
 | ``deim`` | ``weight`` | ``random``.
+
+Spans (``obs.Tracer``, on lane ``TRACK`` of the tracer given to
+``compress_model``; ``torch.profiler`` ranges of the same names while a
+capture records, with or without a tracer): ``cur.compress`` one call
+(attribute layers) > ``cur.class`` one (m, n, r) shape class, or one
+weight in the loop pipeline (m, n, r, k weights) > ``cur.wanda`` the
+WANDA score, ``cur.svd`` the SVD (method), ``cur.deim`` both DEIM
+calls (steps), ``cur.link`` the C and R gathers and U = C+ W R+,
+``cur.error`` the Frobenius error and the Theorem 3.1 bound,
+``cur.readback`` the indices' and scalars' host copy; ``cur.fold`` one
+fold, under ``cur.compress``.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -39,6 +51,18 @@ from repro_torch.core.deim import deim
 from repro_torch.core.wanda import wanda_scores
 from repro_torch.models.model import iter_layer_params
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import NULL_TRACER, Tracer
+
+# the Chrome-trace lane of the cur.* spans
+TRACK = 1
+# the tracer of the compress_model call in progress: the stage functions
+# keep their signatures (checks patch them by name and call them so)
+_tracer: contextvars.ContextVar = contextvars.ContextVar(
+    "cur_tracer", default=NULL_TRACER)
+
+
+def _span(name: str, **attrs):
+    return _tracer.get().span(name, track=TRACK, **attrs)
 
 
 @dataclasses.dataclass
@@ -130,21 +154,27 @@ def select_indices(W: torch.Tensor, r: int, method: str, act_sq,
             g = g if batched else g[0]
         return randomized_svd(M, rr, G=g)
 
+    def wanda():
+        with _span("cur.wanda"):
+            return wanda_scores(W, torch.as_tensor(act_sq, device=dev))
+
+    def svd_deim(M):
+        with _span("cur.svd", method=svd_method):
+            P, sig, Q = svd_fn(M, k_svd)
+        with _span("cur.deim", steps=2 * (r - 1)):
+            p, q = deim(P[..., :r]), deim(Q[..., :r])
+        return p, q, {"P": P, "Q": Q, "sig": sig}
+
     aux = {}
     k_svd = min(r + 1, min(W.shape[-2:]))
     if method == "wanda_deim":
-        S = wanda_scores(W, torch.as_tensor(act_sq, device=dev))
-        P, sig, Q = svd_fn(S, k_svd)
-        p, q = deim(P[..., :r]), deim(Q[..., :r])
-        aux = {"P": P, "Q": Q, "sig": sig}
+        p, q, aux = svd_deim(wanda())
     elif method == "wanda":
-        S = wanda_scores(W, torch.as_tensor(act_sq, device=dev))
+        S = wanda()
         p = _top_k_indices(torch.linalg.norm(S, dim=-1), r)
         q = _top_k_indices(torch.linalg.norm(S, dim=-2), r)
     elif method == "deim":
-        P, sig, Q = svd_fn(W.float(), k_svd)
-        p, q = deim(P[..., :r]), deim(Q[..., :r])
-        aux = {"P": P, "Q": Q, "sig": sig}
+        p, q, aux = svd_deim(W.float())
     elif method == "weight":
         Wf = W.float()
         p = _top_k_indices(torch.linalg.norm(Wf, dim=-1), r)
@@ -229,16 +259,26 @@ def _decompose(W, r, cur_cfg: CURConfig, act, seed):
     solve, reconstruction error, Theorem 3.1 bound."""
     p, q, aux = select_indices(W, r, cur_cfg.selection, act, seed,
                                cur_cfg.svd)
-    Wf = W.float()
-    C, U, R = cur_from_indices(Wf, p, q)
-    err = torch.linalg.norm(Wf - C @ U @ R, dim=(-2, -1))
-    if "P" in aux and aux["sig"].shape[-1] > r:
-        bound = spectral_error_bound(
-            aux["P"][..., :r], aux["Q"][..., :r], aux["sig"], p, q)
-    else:
-        bound = torch.full_like(err, float("nan"))
-    frow = torch.linalg.norm(Wf, dim=(-2, -1))
+    with _span("cur.link"):
+        Wf = W.float()
+        C, U, R = cur_from_indices(Wf, p, q)
+    with _span("cur.error"):
+        err = torch.linalg.norm(Wf - C @ U @ R, dim=(-2, -1))
+        if "P" in aux and aux["sig"].shape[-1] > r:
+            bound = spectral_error_bound(
+                aux["P"][..., :r], aux["Q"][..., :r], aux["sig"], p, q)
+        else:
+            bound = torch.full_like(err, float("nan"))
+        frow = torch.linalg.norm(Wf, dim=(-2, -1))
     return p, q, C, U, R, err, frow, bound
+
+
+def _readback(p, q, err, frow, bound):
+    """The indices and the scalars, copied to the host."""
+    with _span("cur.readback"):
+        idx = torch.stack([p, q]).cpu().numpy()
+        scal = torch.stack([err, frow, bound.to(err.device)]).cpu().numpy()
+    return idx, scal
 
 
 def _leaf(C, U, R, dtype) -> dict:
@@ -255,11 +295,12 @@ def compress_weight(W: torch.Tensor, name: str, layer: int,
     t0 = time.perf_counter()
     m, n = W.shape
     r = rank if rank is not None else resolve_rank(m, n, layer, name, cur_cfg)
-    p, q, C, U, R, err, frow, bound = _decompose(W, r, cur_cfg, act_sq, seed)
-    leaf = _leaf(C, U, R, W.dtype)
-    idx = torch.stack([p, q]).cpu().numpy()
-    scal = torch.stack([err, frow, bound.to(err.device)]).cpu().numpy()
+    with _span("cur.class", m=m, n=n, r=r, k=1):
+        p, q, C, U, R, err, frow, bound = _decompose(W, r, cur_cfg, act_sq,
+                                                     seed)
+        idx, scal = _readback(p, q, err, frow, bound)
     dt = time.perf_counter() - t0            # ends at the host transfer
+    leaf = _leaf(C, U, R, W.dtype)
     obs_metrics.histogram(
         "repro_compress_weight_s",
         "per-weight CUR time (loop pipeline / reference path)").observe(dt)
@@ -300,19 +341,19 @@ def _compress_batched(work: List[_WorkItem], cur_cfg: CURConfig):
     results: List[Optional[Tuple[dict, WeightInfo]]] = [None] * len(work)
     for (m, n, r), idxs in classes.items():
         t0 = time.perf_counter()
-        Ws = torch.stack([work[i].W for i in idxs])
-        dev = Ws.device
-        acts = torch.stack([
-            torch.as_tensor(work[i].act, dtype=torch.float32, device=dev)
-            if work[i].act is not None
-            else torch.zeros((m,), dtype=torch.float32, device=dev)
-            for i in idxs])
-        p, q, C, U, R, err, frow, bound = _decompose(
-            Ws, r, cur_cfg, acts, [work[i].seed for i in idxs])
-        # one host transfer per class for the index and scalar fields;
-        # the factors stay on the device in the returned leaves
-        idx = torch.stack([p, q]).cpu().numpy()
-        scal = torch.stack([err, frow, bound.to(err.device)]).cpu().numpy()
+        with _span("cur.class", m=m, n=n, r=r, k=len(idxs)):
+            Ws = torch.stack([work[i].W for i in idxs])
+            dev = Ws.device
+            acts = torch.stack([
+                torch.as_tensor(work[i].act, dtype=torch.float32, device=dev)
+                if work[i].act is not None
+                else torch.zeros((m,), dtype=torch.float32, device=dev)
+                for i in idxs])
+            p, q, C, U, R, err, frow, bound = _decompose(
+                Ws, r, cur_cfg, acts, [work[i].seed for i in idxs])
+            # one host transfer per class for the index and scalar fields;
+            # the factors stay on the device in the returned leaves
+            idx, scal = _readback(p, q, err, frow, bound)
         dt = (time.perf_counter() - t0) / len(idxs)
         # per-shape-class timing, ending at the class's host transfer; the
         # label space is open-ended but small in practice, so overflow
@@ -393,9 +434,23 @@ def _cur_work_list(params, cfg: ModelConfig, cur_cfg: CURConfig,
 
 @torch.no_grad()
 def compress_model(params, cfg: ModelConfig, cur_cfg: CURConfig,
-                   calib: CalibStats, layers: Optional[List[int]] = None):
+                   calib: CalibStats, layers: Optional[List[int]] = None,
+                   tracer: Optional[Tracer] = None):
     """Returns (new_params, new_cfg, CompressInfo). The new params share
-    every untouched tensor with ``params``."""
+    every untouched tensor with ``params``. ``tracer`` keeps the cur.*
+    spans, on its lane ``TRACK``."""
+    tracer = tracer or NULL_TRACER
+    if tracer.enabled:
+        tracer.name_track(TRACK, "cur")
+    token = _tracer.set(tracer)
+    try:
+        with _span("cur.compress") as span:
+            return _compress_model(params, cfg, cur_cfg, calib, layers, span)
+    finally:
+        _tracer.reset(token)
+
+
+def _compress_model(params, cfg, cur_cfg, calib, layers, span):
     t_start = time.perf_counter()
     distances = angular.layer_distances(calib.hidden)
     if layers is None:
@@ -403,6 +458,7 @@ def compress_model(params, cfg: ModelConfig, cur_cfg: CURConfig,
             distances, cur_cfg.n_compress_layers,
             cur_cfg.layer_selection, cur_cfg.seed)
     layer_set = set(layers)
+    span.set(layers=len(layer_set))
     _validate_ranks(params, cfg, cur_cfg, layer_set)
 
     new_cfg = unrolled_config(cfg)
@@ -425,8 +481,9 @@ def compress_model(params, cfg: ModelConfig, cur_cfg: CURConfig,
             continue                             # Eq. 2 guard, deployed form
         if cur_cfg.fold_u:
             t_fold = time.perf_counter()
-            leaf = fold_cur(leaf)
-            _sync(leaf["CU"].device)
+            with _span("cur.fold"):
+                leaf = fold_cur(leaf)
+                _sync(leaf["CU"].device)
             seconds_fold += time.perf_counter() - t_fold
         block = new_params["groups"][it.layer][0]
         block[it.name] = tree_map(lambda a: a[None], leaf)

@@ -17,9 +17,10 @@ runtime does not take). The report keeps the JAX launcher's schema
 ``generate``, ``draft``); ``stages_s.total`` covers every stage.
 
 ``--obs`` writes the ``repro_compress_*`` metrics, ``--trace`` the stage
-spans (Chrome trace) to ``--obs-out``; ``--prof`` captures
+spans (Chrome trace) to ``--obs-out``, with the compression's own cur.*
+spans (``core.compress``) on a lane of their own; ``--prof`` captures
 ``torch.profiler`` traces of calibrate and compress under
-``--obs-out/torchprof``.
+``--obs-out/torchprof``, which hold the cur.* ranges.
 """
 from __future__ import annotations
 
@@ -193,8 +194,8 @@ def cure_run(args, *, tracer=None) -> CureRun:
     # ---- compress + fold ----------------------------------------------
     t0 = time.perf_counter()
     with prof.scope("compress"):
-        cparams, ccfg_model, info = compress_model(params, cfg, ccfg,
-                                                   calib, layers=layers)
+        cparams, ccfg_model, info = compress_model(
+            params, cfg, ccfg, calib, layers=layers, tracer=tracer)
         _sync(device)
     dt = time.perf_counter() - t0
     # fold time is measured inside compress_model (each fold ends in a
@@ -235,7 +236,7 @@ def cure_run(args, *, tracer=None) -> CureRun:
             max_concurrency=args.max_concurrency, seed=args.seed,
             device=device)
 
-    stages = tracer.durations()
+    stages = tracer.durations(track=obs.ENGINE_TRACK)
     stages["total"] = time.perf_counter() - t_total
 
     w = info.weights

@@ -4,7 +4,8 @@ package's ``repro.obs`` modules of the same names (the port imports
 nothing of ``repro``).
 
   metrics    process-wide registry: counters, gauges, labeled histograms
-  trace      span tracker, per-request lanes, Chrome-trace JSON export
+  trace      span tracker, per-request lanes, Chrome-trace JSON export;
+             spans open torch.profiler ranges while a capture records
   export     snapshot dict, Prometheus text, JSONL event log, write_all
   loadgen    seeded synthetic workloads + the open-loop load runner
   slo        SLO spec + evaluation: attainment, goodput, decomposition

@@ -11,9 +11,22 @@ track 0, per-request lifecycle spans (queued -> prefill -> decode-window
 -> spec-draft/verify -> done) on ``track = rid + 1`` so every request
 renders as its own swimlane.
 
-A disabled tracer is free: ``span()`` returns one shared null context
-manager and ``event()`` returns immediately — no object is allocated
-per call.
+While a ``torch.profiler`` capture is recording, every span, of an
+enabled tracer or not (``NULL_TRACER`` too), also opens a
+``torch.profiler.record_function`` range under its name, so the spans
+appear in the capture beside the kernels they launch. That is checked
+at each span; a span never synchronises the device.
+
+A disabled tracer with no capture recording is free: ``span()`` returns
+one shared null context manager and ``event()`` returns immediately —
+no object is allocated per call.
+
+The export's ``ts`` are microseconds from the tracer's epoch, whose
+``perf_counter`` and Unix time (``time.time_ns()``, the profiler's
+clock) are ``otherData.clock_anchor``: a span's Unix nanoseconds are
+``unix_ns + 1000 ts``, as an event's are ``baseTimeNanoseconds + 1000
+ts`` in the profiler's own Chrome export, so ``trace.json`` and a
+``torchprof/*.trace.json`` of one run lie on one timeline.
 """
 from __future__ import annotations
 
@@ -21,6 +34,8 @@ import functools
 import json
 import time
 from typing import Dict, List, Optional
+
+import torch
 
 ENGINE_TRACK = 0
 
@@ -47,8 +62,30 @@ class _NullCtx:
 NULL_CTX = _NullCtx()
 
 
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` capture is recording."""
+    return torch.autograd._profiler_enabled()
+
+
+class _RangeCtx(_NullCtx):
+    """A disabled tracer's span while a capture records: the profiler
+    range alone."""
+    __slots__ = ("rf",)
+
+    def __init__(self, name: str):
+        self.rf = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.rf.__exit__(*exc)
+        return False
+
+
 class _SpanCtx:
-    __slots__ = ("tracer", "name", "track", "attrs", "t0")
+    __slots__ = ("tracer", "name", "track", "attrs", "t0", "rf")
 
     def __init__(self, tracer: "Tracer", name: str, track: int,
                  attrs: Optional[dict]):
@@ -57,6 +94,7 @@ class _SpanCtx:
         self.track = track
         self.attrs = attrs
         self.t0 = 0.0
+        self.rf = None
 
     def set(self, **attrs):
         """Attach attributes from inside the span body."""
@@ -66,6 +104,9 @@ class _SpanCtx:
         return self
 
     def __enter__(self):
+        if _profiling():
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
         self.t0 = time.perf_counter()
         return self
 
@@ -73,17 +114,22 @@ class _SpanCtx:
         self.tracer.add_span(self.name, self.t0,
                              time.perf_counter() - self.t0,
                              track=self.track, attrs=self.attrs)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
         return False
 
 
 class Tracer:
     """Append-only span/event recorder. Timestamps are
-    ``time.perf_counter()`` seconds relative to the tracer's epoch."""
+    ``time.perf_counter()`` seconds relative to the tracer's epoch, whose
+    Unix time (``time.time_ns()``, the profiler's clock) is
+    ``epoch_ns``."""
 
     def __init__(self, enabled: bool = True, process: str = "repro"):
         self.enabled = enabled
         self.process = process
         self.epoch = time.perf_counter()
+        self.epoch_ns = time.time_ns()
         self.spans: List[dict] = []
         self.events: List[dict] = []
         self._track_names: Dict[int, str] = {ENGINE_TRACK: "engine"}
@@ -95,7 +141,7 @@ class Tracer:
              **attrs):
         """``with tracer.span("prefill", batch=4): ...``"""
         if not self.enabled:
-            return NULL_CTX
+            return _RangeCtx(name) if _profiling() else NULL_CTX
         return _SpanCtx(self, name, track, attrs or None)
 
     def wrap(self, name: Optional[str] = None, track: int = ENGINE_TRACK):
@@ -105,8 +151,6 @@ class Tracer:
 
             @functools.wraps(fn)
             def inner(*a, **kw):
-                if not self.enabled:
-                    return fn(*a, **kw)
                 with self.span(label, track=track):
                     return fn(*a, **kw)
             return inner
@@ -149,18 +193,23 @@ class Tracer:
             ev.append({"ph": "i", "pid": 0, "tid": e["track"], "s": "t",
                        "name": e["name"], "ts": e["t0"] * 1e6,
                        "args": e["attrs"]})
-        return {"traceEvents": ev, "displayTimeUnit": "ms"}
+        return {"traceEvents": ev, "displayTimeUnit": "ms",
+                "otherData": {"clock_anchor": {
+                    "perf_counter_s": self.epoch,
+                    "unix_ns": self.epoch_ns}}}
 
     def save(self, path: str) -> str:
         with open(path, "w") as f:
             json.dump(self.to_chrome_trace(), f)
         return path
 
-    def durations(self) -> Dict[str, float]:
-        """Total seconds per span name (the ``stages_s`` derivation)."""
+    def durations(self, track: Optional[int] = None) -> Dict[str, float]:
+        """Total seconds per span name (the ``stages_s`` derivation), of
+        one track's spans when ``track`` is given."""
         out: Dict[str, float] = {}
         for s in self.spans:
-            out[s["name"]] = out.get(s["name"], 0.0) + s["dur"]
+            if track is None or s["track"] == track:
+                out[s["name"]] = out.get(s["name"], 0.0) + s["dur"]
         return out
 
 
@@ -169,9 +218,6 @@ class _NullTracer(Tracer):
 
     def __init__(self):
         super().__init__(enabled=False)
-
-    def span(self, name, track=ENGINE_TRACK, **attrs):
-        return NULL_CTX
 
     def event(self, name, track=ENGINE_TRACK, **attrs):
         return None

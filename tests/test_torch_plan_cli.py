@@ -279,11 +279,18 @@ def test_cure_trace_writes_the_stage_spans(tmp_path):
         str(out_dir)])
     with open(out_dir / "trace.json") as f:
         ev = json.load(f)["traceEvents"]
-    spans = [e["name"] for e in ev if e["ph"] == "X"]
+    spans = [e["name"] for e in ev if e["ph"] == "X" and e["tid"] == 0]
     assert spans == ["init", "calibrate", "plan", "compress", "fold",
                      "save", "generate"]
     assert not os.path.exists(out_dir / "metrics.json")
     assert list(rep["stages_s"]) == spans + ["total"]
+    # the compression's own spans, on a lane of their own
+    inner = {e["name"] for e in ev if e["ph"] == "X" and e["tid"] != 0}
+    assert inner == {"cur.compress", "cur.class", "cur.wanda", "cur.svd",
+                     "cur.deim", "cur.link", "cur.error", "cur.readback",
+                     "cur.fold"}
+    assert {"ph": "M", "pid": 0, "tid": 1, "name": "thread_name",
+            "args": {"name": "cur"}} in ev
 
 
 def test_cure_prof_captures_calibrate_and_compress(tmp_path):
@@ -292,6 +299,9 @@ def test_cure_prof_captures_calibrate_and_compress(tmp_path):
                                 "--prof", "--obs-out", str(out_dir)])
     files = sorted(os.listdir(out_dir / "torchprof"))
     assert files == ["calibrate.0.trace.json", "compress.1.trace.json"]
+    with open(out_dir / "torchprof" / files[1]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"cur.compress", "cur.svd", "cur.deim", "cur.fold"} <= names
 
 
 def test_plan_cli_progressive_writes_the_last_accepted_plan(tmp_path,
