@@ -24,9 +24,10 @@ Spans (``obs.Tracer``, on lane ``TRACK`` of the tracer given to
 capture records, with or without a tracer): ``cur.compress`` one call
 (attribute layers) > ``cur.class`` one (m, n, r) shape class, or one
 weight in the loop pipeline (m, n, r, k weights) > ``cur.wanda`` the
-WANDA score, ``cur.svd`` the SVD (method), ``cur.deim`` both DEIM
-calls (steps), ``cur.link`` the C and R gathers and U = C+ W R+,
-``cur.error`` the Frobenius error and the Theorem 3.1 bound,
+WANDA score, ``cur.svd`` the SVD (method; route, of the exact SVD:
+``core.cur.exact_svd``), ``cur.deim`` both DEIM calls (steps),
+``cur.link`` the C and R gathers and U = C+ W R+, ``cur.error`` the
+Frobenius error and the Theorem 3.1 bound,
 ``cur.readback`` the indices' and scalars' host copy; ``cur.fold`` one
 fold, under ``cur.compress``.
 """
@@ -42,7 +43,7 @@ import torch
 
 from repro_torch.bridge import tree_map
 from repro_torch.configs.base import CURConfig, ModelConfig
-from repro_torch.core import angular
+from repro_torch.core import angular, cur
 from repro_torch.core.calibrate import CalibStats
 from repro_torch.core.cur import (
     cur_from_indices, exact_svd, randomized_svd, rank_for,
@@ -159,8 +160,11 @@ def select_indices(W: torch.Tensor, r: int, method: str, act_sq,
             return wanda_scores(W, torch.as_tensor(act_sq, device=dev))
 
     def svd_deim(M):
-        with _span("cur.svd", method=svd_method):
+        with _span("cur.svd", method=svd_method) as span:
+            cur.svd_route.set(None)
             P, sig, Q = svd_fn(M, k_svd)
+            if svd_method == "exact":
+                span.set(route=cur.svd_route.get())
         with _span("cur.deim", steps=2 * (r - 1)):
             p, q = deim(P[..., :r]), deim(Q[..., :r])
         return p, q, {"P": P, "Q": Q, "sig": sig}

@@ -1,16 +1,29 @@
 """CUR decomposition: rank selection (Eq. 2), the Frobenius-optimal link
-matrix U = C+ W R+ (Eq. 1), randomized range-finder SVD, and the
-error-bound constants of Theorem 3.1.
+matrix U = C+ W R+ (Eq. 1), the exact leading SVD, randomized
+range-finder SVD, and the error-bound constants of Theorem 3.1.
 
 Every function takes an optional leading batch dim (the batched
 compression pipeline stacks same-shape weights).
 """
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import Optional
 
 import torch
+
+from repro_torch.obs import metrics as obs_metrics
+
+# sigma_k / sigma_1 below which the Gram route hands over to the full SVD:
+# the float64 Gram's eigenvalues carry an error of about n eps64 sigma_1^2,
+# which resolves sigma_k to float32's resolution of sigma_1 only down to
+# here (a rank-deficient score, e.g. dead input features, falls below)
+GRAM_FLOOR = 1e-4
+# the route ("gram" | "full") of this context's last exact_svd call, for
+# its caller's span: the return stays (P, sig, Q)
+svd_route: contextvars.ContextVar = contextvars.ContextVar(
+    "svd_route", default=None)
 
 
 def rank_for(m: int, n: int, r_max: int = 256) -> int:
@@ -36,11 +49,46 @@ def compute_u(W: torch.Tensor, C: torch.Tensor, R: torch.Tensor
     return pinv(C.float()) @ W.float() @ pinv(R.float())
 
 
+def _gram_svd(S: torch.Tensor, k: int):
+    """The k leading triplets from the float64 Gram matrix of the smaller
+    side, or None where sigma_k < GRAM_FLOOR sigma_1 (one readback)."""
+    S = S.double()                               # exact cast
+    wide = S.shape[-2] <= S.shape[-1]
+    G = S @ S.mT if wide else S.mT @ S
+    lam, V = torch.linalg.eigh(G)                # ascending
+    V = V[..., -k:].flip(-1)
+    sig = lam[..., -k:].flip(-1).clamp(min=0).sqrt()
+    if not bool((sig[..., -1] > GRAM_FLOOR * sig[..., 0]).all()):
+        return None
+    W = (S.mT @ V if wide else S @ V) / sig[..., None, :]
+    P, Q = (V, W) if wide else (W, V)
+    return P.float(), sig.float(), Q.float()
+
+
 def exact_svd(S: torch.Tensor, r: int):
-    """Leading-r SVD via the full SVD (paper-faithful path).
-    Returns (P (..., m, r), sig (..., r), Q (..., n, r))."""
-    P, sig, Qt = torch.linalg.svd(S.float(), full_matrices=False)
-    return P[..., :, :r], sig[..., :r], Qt[..., :r, :].mT
+    """The leading r singular triplets of S, converged.
+    Returns (P (..., m, r), sig (..., r), Q (..., n, r)), float32.
+
+    For r < min(m, n) (route "gram"): the r largest eigenpairs of the
+    float64 Gram matrix of the smaller side (S S^T when m <= n, else
+    S^T S) give sig = sqrt(lambda) and that side's vectors, orthonormal
+    to float64 rounding; one float64 back-product gives the other side's
+    (Q = S^T P diag(1/sig)). That is O(mn min(m, n)) in products plus one
+    min(m, n)^2 eigensolve, against a full SVD's iterations over all
+    min(m, n) triplets. The full SVD (route "full") answers where the
+    Gram cannot hold the answer: r = min(m, n), or sigma_r below
+    GRAM_FLOOR sigma_1 in some matrix of the batch. Each call counts in
+    ``repro_cur_svd_calls_total{route}`` and sets ``svd_route``."""
+    out = _gram_svd(S, r) if r < min(S.shape[-2:]) else None
+    route = "full" if out is None else "gram"
+    if out is None:
+        P, sig, Qt = torch.linalg.svd(S.float(), full_matrices=False)
+        out = P[..., :, :r], sig[..., :r], Qt[..., :r, :].mT
+    svd_route.set(route)
+    obs_metrics.counter(
+        "repro_cur_svd_calls_total", "exact_svd calls by route",
+        labels=("route",)).labels(route=route).inc()
+    return out
 
 
 def randomized_svd(S: torch.Tensor, r: int,

@@ -18,6 +18,7 @@ from repro_torch.core import cur as tcur
 from repro_torch.core.compress import select_indices
 from repro_torch.core.deim import deim
 from repro_torch.core.wanda import wanda_scores
+from repro_torch.obs import metrics as obs_metrics
 
 from _torch_helpers import assert_close
 
@@ -86,6 +87,86 @@ def test_exact_svd_matches_jax():
     assert_close(_np(st), sj)
     assert_close(_reconstruct(_np(Pt), _np(st), _np(Qt)),
                  _reconstruct(Pj, sj, Qj))
+
+
+def _wanda_like(m, n, lead=(), seed=0):
+    """|Gaussian| rows scaled by positive activation norms: a dominant
+    sigma_1 over a flat bulk, as the WANDA score has."""
+    g = torch.Generator().manual_seed(seed)
+    S = torch.randn((*lead, m, n), generator=g).abs()
+    return S * (0.5 + 2 * torch.rand((*lead, m, 1), generator=g))
+
+
+@pytest.fixture
+def routes():
+    """The process-wide registry on and empty; yields a reader of the
+    exact SVD's calls by route."""
+    obs_metrics.disable()
+    obs_metrics.default_registry().reset()
+    obs_metrics.enable()
+
+    def count():
+        c = obs_metrics.default_registry().get("repro_cur_svd_calls_total")
+        return {} if c is None else {
+            key.split("=")[1]: v["value"]
+            for key, v in c.snapshot()["children"].items()}
+    yield count
+    obs_metrics.disable()
+    obs_metrics.default_registry().reset()
+
+
+def _svd_departures(S, P, sig, Q):
+    """(sigma error, orthonormality, triplet residuals) of (P, sig, Q)
+    against float64 ``torch.linalg.svd`` of S, each over sigma_1 where it
+    is a size."""
+    S, P, sig, Q = (t.double() for t in (S, P, sig, Q))
+    k = sig.shape[-1]
+    ref = torch.linalg.svdvals(S)
+    s1 = ref[..., :1]
+    eye = torch.eye(k, dtype=torch.float64)
+    orth = max(float((P.mT @ P - eye).abs().max()),
+               float((Q.mT @ Q - eye).abs().max()))
+    res = torch.maximum(
+        torch.linalg.norm(S @ Q - P * sig[..., None, :], dim=(-2, -1)),
+        torch.linalg.norm(S.mT @ P - Q * sig[..., None, :], dim=(-2, -1)))
+    return (float(((sig - ref[..., :k]).abs() / s1).max()), orth,
+            float((res / s1[..., 0]).max()))
+
+
+@pytest.mark.parametrize("m,n,lead", [
+    (96, 200, ()), (200, 96, ()), (96, 200, (3,)), (200, 96, (2,))],
+    ids=["wide", "tall", "wide-batched", "tall-batched"])
+def test_exact_svd_gram_route_is_exact(routes, m, n, lead):
+    S = _wanda_like(m, n, lead, seed=m + n)
+    k = 33
+    P, sig, Q = tcur.exact_svd(S, k)
+    assert P.shape == (*lead, m, k) and Q.shape == (*lead, n, k)
+    assert sig.shape == (*lead, k) and P.dtype == torch.float32
+    assert tcur.svd_route.get() == "gram" and routes() == {"gram": 1}
+    gap, orth, res = _svd_departures(S, P, sig, Q)
+    assert gap < 1e-6 and orth < 1e-6 and res < 1e-5
+
+
+def test_exact_svd_falls_back_where_sigma_k_vanishes(routes):
+    """Zero rows (dead features) leave rank 20 < k < min(m, n): sigma_k
+    is 0, which the Gram cannot resolve, so the full SVD answers."""
+    S = _wanda_like(96, 200, seed=1)
+    S[20:] = 0
+    P, sig, Q = tcur.exact_svd(S, 33)
+    assert tcur.svd_route.get() == "full" and routes() == {"full": 1}
+    _, orth, res = _svd_departures(S, P, sig, Q)
+    assert orth < 1e-5 and res < 1e-5
+    assert float(sig[20:].max()) < 1e-5 * float(sig[0])
+
+
+def test_exact_svd_full_spectrum_takes_full_route(routes):
+    S = _wanda_like(40, 24, (2,), seed=2)
+    P, sig, Q = tcur.exact_svd(S, 24)
+    assert tcur.svd_route.get() == "full"
+    gap, orth, res = _svd_departures(S, P, sig, Q)
+    assert gap < 1e-6 and orth < 1e-5 and res < 1e-5
+    tcur.exact_svd(S, 23)
+    assert routes() == {"full": 1, "gram": 1}
 
 
 def test_randomized_svd_with_injected_g_matches_jax():

@@ -77,7 +77,7 @@ def test_pipeline_emits_every_span_nested_on_both_clocks(model, pipeline,
     assert abs(base + span["ts"] * 1e3 - top[0]) < 50e6
     attrs = {s["name"]: s["attrs"] for s in spans}
     assert attrs["cur.compress"] == {"layers": 2}
-    assert attrs["cur.svd"] == {"method": "exact"}
+    assert attrs["cur.svd"] == {"method": "exact", "route": "gram"}
     assert attrs["cur.deim"] == {"steps": 2 * 15}
     assert {(a["m"], a["n"], a["r"], a["k"]) for a in
             (s["attrs"] for s in spans if s["name"] == "cur.class")} == {
