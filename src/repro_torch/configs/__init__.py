@@ -3,13 +3,16 @@
 Every configuration of the JAX package is registered. Unlike the JAX
 package's ``ARCHS`` (which leaves the paper's own model out of its CLI
 choices), ``llama3.1-8b`` is a first-class entry here: it is the model the
-port's main path runs at full width.
+port's main path runs at full width. ``ARCHS`` stays the JAX package's
+mirror; ``PORT_ARCHS`` holds the models only the port runs
+(``k-exaone-236b-a23b``), and ``get_config`` / ``get_smoke`` resolve both.
 """
 from repro_torch.configs import (
     deepseek_67b,
     deepseek_coder_33b,
     gemma3_1b,
     jamba_v0_1_52b,
+    k_exaone_236b,
     kimi_k2_1t_a32b,
     llama31_8b,
     mamba2_1_3b,
@@ -39,13 +42,20 @@ _MODULES = {
 
 ARCHS = tuple(_MODULES)
 
+_PORT_MODULES = {
+    "k-exaone-236b-a23b": k_exaone_236b,
+}
+
+PORT_ARCHS = tuple(_PORT_MODULES)
+_ALL = {**_MODULES, **_PORT_MODULES}
+
 
 def get_config(name: str) -> ModelConfig:
-    return _MODULES[name].CONFIG
+    return _ALL[name].CONFIG
 
 
 def get_smoke(name: str) -> ModelConfig:
-    return _MODULES[name].SMOKE
+    return _ALL[name].SMOKE
 
 
 def get_repro() -> ModelConfig:
@@ -53,7 +63,8 @@ def get_repro() -> ModelConfig:
     return llama31_8b.REPRO
 
 
-__all__ = ["ARCHS", "ATTN", "ATTN_LOCAL", "MAMBA", "MLP", "MOE", "SHAPES",
+__all__ = ["ARCHS", "ATTN", "ATTN_LOCAL", "MAMBA", "MLP", "MOE", "PORT_ARCHS",
+           "SHAPES",
            "BlockSpec", "CURConfig", "ModelConfig", "OptimizerConfig",
            "ShapeConfig", "TrainConfig", "get_config", "get_repro",
            "get_smoke", "shape_applicable"]

@@ -40,6 +40,12 @@ class BlockSpec:
         return f"{self.mixer}+{self.mlp}"
 
 
+# the fields of ModelConfig that the JAX package's lacks (their defaults
+# keep its behaviour)
+PORT_FIELDS = ("rope_on_global", "moe_scoring", "routed_scaling",
+               "expert_first", "experts_held", "block_norm")
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
@@ -52,6 +58,9 @@ class ModelConfig:
     window: int = 0            # sliding window size for ATTN_LOCAL
     rope_theta: float = 10_000.0
     qk_norm: bool = False
+    # False: NoPE on full-attention layers, RoPE on window layers only
+    # (EXAONE 4's hybrid attention)
+    rope_on_global: bool = True
     # mlp
     d_ff: int = 0
     mlp_act: str = "silu"      # "silu" (SwiGLU gated) | "gelu" (plain 2-layer)
@@ -62,6 +71,16 @@ class ModelConfig:
     moe_d_ff: int = 0          # expert intermediate dim (kimi uses 2048)
     n_shared_experts: int = 0  # dense shared expert path (kimi-style)
     capacity_factor: float = 1.25
+    # router scores: "softmax" (Mixtral) | "sigmoid" (DeepSeek-V3 style,
+    # f32 logits); the top k are renormalized, then scaled by this
+    moe_scoring: str = "softmax"
+    routed_scaling: float = 1.0
+    # the experts this device holds: [expert_first, expert_first +
+    # experts_held) of the n_experts the router scores (0: all of them).
+    # The absent experts add nothing (expert parallelism's share of a
+    # layer, without its exchange)
+    expert_first: int = 0
+    experts_held: int = 0
     # mamba
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -76,6 +95,10 @@ class ModelConfig:
     norm_eps: float = 1e-5
     parametric_norm: bool = True   # olmo uses non-parametric LN
     norm_type: str = "rmsnorm"     # "rmsnorm" | "layernorm"
+    # "input": norm1 / norm2 on each sub-block's input (pre-norm);
+    # "output": on each sub-block's output before the residual add, the
+    # sub-blocks reading the residual stream itself (EXAONE 4)
+    block_norm: str = "input"
     # modality frontend stub: inputs may be precomputed embeddings
     input_mode: str = "tokens"     # "tokens" | "embeddings"
     # layer structure: tuple of (pattern tuple[BlockSpec], repeats)
@@ -107,6 +130,16 @@ class ModelConfig:
     # which weights CURing targets for this family (DESIGN.md §5)
     cur_targets: Tuple[str, ...] = ("wq", "wk", "w_gate")
 
+    def __repr__(self) -> str:
+        """The dataclass repr, leaving out the ``PORT_FIELDS`` that hold
+        their defaults: a config both packages have reads as the JAX
+        package's (and digests alike: ``plan.config_hash``)."""
+        parts = [f"{f.name}={getattr(self, f.name)!r}"
+                 for f in dataclasses.fields(self)
+                 if not (f.name in PORT_FIELDS
+                         and getattr(self, f.name) == f.default)]
+        return f"{type(self).__qualname__}({', '.join(parts)})"
+
     # ---- derived -----------------------------------------------------
     @property
     def resolved_head_dim(self) -> int:
@@ -123,6 +156,11 @@ class ModelConfig:
             f"{self.name}: groups describe {len(out)} layers, "
             f"config says {self.n_layers}")
         return tuple(out)
+
+    @property
+    def n_local_experts(self) -> int:
+        """Experts whose weights this device holds."""
+        return self.experts_held or self.n_experts
 
     @property
     def d_inner(self) -> int:  # mamba inner dim
@@ -157,7 +195,7 @@ class ModelConfig:
                 total += n_mats * d * ff
             elif spec.mlp == MOE:
                 ff = self.moe_d_ff or self.d_ff
-                total += self.n_experts * 3 * d * ff
+                total += self.n_local_experts * 3 * d * ff
                 total += d * self.n_experts            # router
                 if self.n_shared_experts:
                     total += self.n_shared_experts * 3 * d * ff
@@ -167,15 +205,17 @@ class ModelConfig:
         return total
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE counts only routed experts)."""
+        """Active params per token (MoE counts only routed experts; of a
+        held share, at most ``n_experts_per_tok`` of its experts)."""
         if self.n_experts == 0:
             return self.param_count()
         d = self.d_model
         total = self.param_count()
         ff = self.moe_d_ff or self.d_ff
+        held = self.n_local_experts
         for spec in self.blocks:
             if spec.mlp == MOE:
-                inactive = (self.n_experts - self.n_experts_per_tok)
+                inactive = held - min(self.n_experts_per_tok, held)
                 total -= inactive * 3 * d * ff
         return total
 

@@ -29,10 +29,22 @@ WANDA score, ``cur.svd`` the SVD (method; route, of the exact SVD:
 ``cur.link`` the C and R gathers and U = C+ W R+, ``cur.error`` the
 Frobenius error and the Theorem 3.1 bound,
 ``cur.readback`` the indices' and scalars' host copy; ``cur.fold`` one
-fold, under ``cur.compress``.
+fold, under ``cur.compress``. ``cur.experts`` (layer, k, m, n, r) holds
+the ``cur.class`` of a class with expert weights in it.
+
+Targets (``ModelConfig.cur_targets``) name a block's 2-D weights
+(``wq``, ``w_gate``), a nested one (``shared.w_gate``: the shared
+expert's gate), or ``experts.<name>``: each held routed expert's weight
+of the (E, m, n) stack ``<name>`` as a weight of its own (its own WANDA
+statistics, over the tokens routed to it, and its own seed). A stack is
+CURed whole or not at all and restacked as ``{"CU": (E, m, r), "R":
+(E, r, n)}`` (or the healing form). A bare name of an expert stack
+(``w_gate`` in a MoE layer) is not a 2-D weight and stays dense. A
+``ranks`` plan names no expert, so under one the experts stay dense.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 import time
@@ -86,6 +98,8 @@ class WeightInfo:
     # importance matrix S ("wanda"), the raw weight W ("weight"), or not
     # computed ("none")
     bound_on: str = "none"
+    # the held expert's index in its stack (an ``experts.*`` target)
+    expert: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -227,8 +241,9 @@ def _validate_ranks(params, cfg: ModelConfig, cur_cfg: CURConfig,
     valid: Dict[str, Tuple[int, int]] = {}
     for li, spec, lp in iter_layer_params(params, cfg):
         for t in cfg.cur_targets:
-            W = lp.get(t)
-            if W is None or isinstance(W, dict) or W.dim() != 2:
+            W = _target(lp, t)
+            if (W is None or isinstance(W, dict) or W.dim() != 2
+                    or t.startswith(EXPERTS)):
                 continue
             valid[rank_key(li, t)] = tuple(W.shape)
     for k, r in cur_cfg.ranks.items():
@@ -294,12 +309,14 @@ def _leaf(C, U, R, dtype) -> dict:
 @torch.no_grad()
 def compress_weight(W: torch.Tensor, name: str, layer: int,
                     cur_cfg: CURConfig, act_sq, seed: int,
-                    rank: Optional[int] = None) -> Tuple[dict, WeightInfo]:
+                    rank: Optional[int] = None,
+                    expert: Optional[int] = None) -> Tuple[dict, WeightInfo]:
     """Single-weight reference path (also the ``pipeline="loop"`` body)."""
     t0 = time.perf_counter()
     m, n = W.shape
     r = rank if rank is not None else resolve_rank(m, n, layer, name, cur_cfg)
-    with _span("cur.class", m=m, n=n, r=r, k=1):
+    with _experts_span(expert is not None, layer, 1, m, n, r), \
+            _span("cur.class", m=m, n=n, r=r, k=1):
         p, q, C, U, R, err, frow, bound = _decompose(W, r, cur_cfg, act_sq,
                                                      seed)
         idx, scal = _readback(p, q, err, frow, bound)
@@ -316,8 +333,16 @@ def compress_weight(W: torch.Tensor, name: str, layer: int,
         fro_err=float(scal[0]), fro_w=float(scal[1]), bound=float(scal[2]),
         seconds=dt, params_before=before, params_after=deployed,
         params_after_unfolded=unfolded, params_after_folded=folded,
-        bound_on=_bound_on(cur_cfg.selection))
+        bound_on=_bound_on(cur_cfg.selection), expert=expert)
     return leaf, info
+
+
+def _experts_span(experts: bool, layer, k: int, m: int, n: int, r: int):
+    """The ``cur.experts`` span of a class holding expert weights (else
+    nothing)."""
+    if not experts:
+        return contextlib.nullcontext()
+    return _span("cur.experts", layer=layer, k=k, m=m, n=n, r=r)
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +357,7 @@ class _WorkItem:
     act: Optional[np.ndarray]
     seed: int
     rank: int = 0
+    expert: Optional[int] = None
 
 
 @torch.no_grad()
@@ -345,7 +371,11 @@ def _compress_batched(work: List[_WorkItem], cur_cfg: CURConfig):
     results: List[Optional[Tuple[dict, WeightInfo]]] = [None] * len(work)
     for (m, n, r), idxs in classes.items():
         t0 = time.perf_counter()
-        with _span("cur.class", m=m, n=n, r=r, k=len(idxs)):
+        experts = [work[i] for i in idxs if work[i].expert is not None]
+        layers = sorted({it.layer for it in experts})
+        with _experts_span(bool(experts), layers[0] if len(layers) == 1
+                           else layers, len(idxs), m, n, r), \
+                _span("cur.class", m=m, n=n, r=r, k=len(idxs)):
             Ws = torch.stack([work[i].W for i in idxs])
             dev = Ws.device
             acts = torch.stack([
@@ -378,7 +408,7 @@ def _compress_batched(work: List[_WorkItem], cur_cfg: CURConfig):
                 bound=float(scal[2, k]), seconds=dt,
                 params_before=before, params_after=deployed,
                 params_after_unfolded=unfolded, params_after_folded=folded,
-                bound_on=_bound_on(cur_cfg.selection))
+                bound_on=_bound_on(cur_cfg.selection), expert=it.expert)
             results[i] = (_leaf(C[k], U[k], R[k], it.W.dtype), info)
     return results
 
@@ -409,30 +439,72 @@ def _item_seed(seed: int, index: int) -> int:
     return seed * 1_000_003 + index
 
 
+EXPERTS = "experts."
+
+
+def _target(lp: dict, t: str):
+    """The leaf a target names in a layer's params (None where it has
+    none): ``a.b`` is ``lp["a"]["b"]``, ``experts.b`` the stack
+    ``lp["b"]``."""
+    if t.startswith(EXPERTS):
+        return lp.get(t[len(EXPERTS):])
+    head, _, rest = t.partition(".")
+    leaf = lp.get(head)
+    if rest:
+        return leaf.get(rest) if isinstance(leaf, dict) else None
+    return leaf
+
+
+def _set_target(block: dict, t: str, leaf) -> None:
+    """Write a target's new leaf into a layer's (unrolled) params."""
+    if t.startswith(EXPERTS):
+        block[t[len(EXPERTS):]] = leaf
+        return
+    head, _, rest = t.partition(".")
+    if rest:
+        block[head] = dict(block[head], **{rest: leaf})
+    else:
+        block[head] = leaf
+
+
 def _cur_work_list(params, cfg: ModelConfig, cur_cfg: CURConfig,
                    calib: CalibStats, layer_set) -> List[_WorkItem]:
-    """Enumerate compressible weights in network order, each with its own
-    seed — identical for the loop and batched pipelines."""
+    """Enumerate compressible weights in network order (a stack's experts
+    in index order), each with its own seed — identical for the loop and
+    batched pipelines."""
     work: List[_WorkItem] = []
     for li, spec, lp in iter_layer_params(params, cfg):
         if li not in layer_set:
             continue
         for t in cfg.cur_targets:
-            if t not in lp:
-                continue
-            W = lp[t]
-            if isinstance(W, dict) or W.dim() != 2:
-                continue                 # already compressed / expert stacks
+            W = _target(lp, t)
+            if W is None or isinstance(W, dict):
+                continue                 # absent / already compressed
+            expert = t.startswith(EXPERTS)
+            if W.dim() != (3 if expert else 2):
+                continue                 # an expert stack named bare
             if cur_cfg.ranks and rank_key(li, t) not in cur_cfg.ranks:
                 continue                 # a ranks map is the whole plan
             act = calib.act_sq[li].get(t) if calib.act_sq else None
             if act is None and cur_cfg.selection in ("wanda_deim", "wanda"):
                 raise ValueError(
                     f"no calibration activations for layer {li} weight {t}")
-            work.append(_WorkItem(li, t, W, act,
-                                  _item_seed(cur_cfg.seed, len(work)),
-                                  resolve_rank(W.shape[0], W.shape[1],
-                                               li, t, cur_cfg)))
+            items = [(None, W, act)]
+            if expert:
+                routed = (calib.expert_tokens[li] if calib.expert_tokens
+                          else None)
+                if act is not None and (routed is None or
+                                        (routed[:W.shape[0]] <= 0).any()):
+                    raise ValueError(
+                        f"layer {li} weight {t}: a held expert saw no "
+                        "calibration token")
+                items = [(e, W[e], None if act is None else act[e])
+                         for e in range(W.shape[0])]
+            for e, We, ae in items:
+                work.append(_WorkItem(li, t, We, ae,
+                                      _item_seed(cur_cfg.seed, len(work)),
+                                      resolve_rank(We.shape[0], We.shape[1],
+                                                   li, t, cur_cfg), e))
     return work
 
 
@@ -471,27 +543,37 @@ def _compress_model(params, cfg, cur_cfg, calib, layers, span):
     work = _cur_work_list(params, cfg, cur_cfg, calib, layer_set)
     if cur_cfg.pipeline == "loop":
         results = [compress_weight(it.W, it.name, it.layer, cur_cfg,
-                                   it.act, it.seed, rank=it.rank)
+                                   it.act, it.seed, rank=it.rank,
+                                   expert=it.expert)
                    for it in work]
     elif cur_cfg.pipeline == "batched":
         results = _compress_batched(work, cur_cfg)
     else:
         raise ValueError(cur_cfg.pipeline)
 
+    # one entry a target of a layer: its items' (leaf, info), a stack's
+    # in expert order
+    targets: Dict[Tuple[int, str], list] = {}
+    for it, res in zip(work, results):
+        targets.setdefault((it.layer, it.name), []).append(res)
     infos: List[WeightInfo] = []
     seconds_fold = 0.0
-    for it, (leaf, info) in zip(work, results):
-        if info.params_after >= info.params_before:
+    for (li, name), done in targets.items():
+        if any(info.params_after >= info.params_before for _, info in done):
             continue                             # Eq. 2 guard, deployed form
+        leaf = done[0][0]
+        if done[0][1].expert is not None:        # restack the experts
+            leaf = {k: torch.stack([lf[k] for lf, _ in done])
+                    for k in leaf}
         if cur_cfg.fold_u:
             t_fold = time.perf_counter()
             with _span("cur.fold"):
                 leaf = fold_cur(leaf)
                 _sync(leaf["CU"].device)
             seconds_fold += time.perf_counter() - t_fold
-        block = new_params["groups"][it.layer][0]
-        block[it.name] = tree_map(lambda a: a[None], leaf)
-        infos.append(info)
+        _set_target(new_params["groups"][li][0], name,
+                    tree_map(lambda a: a[None], leaf))
+        infos.extend(info for _, info in done)
 
     cinfo = CompressInfo(
         distances=distances, layers=sorted(layer_set), weights=infos,
@@ -506,4 +588,8 @@ def _compress_model(params, cfg, cur_cfg, calib, layers, span):
     obs_metrics.counter(
         "repro_compress_weights_total",
         "weights CUR-compressed").inc(len(infos))
+    obs_metrics.counter(
+        "repro_compress_expert_weights_total",
+        "routed experts' weights CUR-compressed (one an expert)").inc(
+        sum(w.expert is not None for w in infos))
     return new_params, new_cfg, cinfo

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs, resolve_device
-from repro_torch.configs import ARCHS, get_config, get_smoke
+from repro_torch.configs import (
+    ARCHS, PORT_ARCHS, get_config, get_smoke)
 from repro_torch.configs.base import CURConfig, ModelConfig
 from repro_torch.core import CalibStats, calibrate, compress_model
 from repro_torch.core.compress import CompressInfo, rank_key
@@ -309,7 +310,8 @@ def cure(args, *, tracer=None) -> dict:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="olmo-1b", choices=list(ARCHS))
+    ap.add_argument("--arch", default="olmo-1b",
+                    choices=list(ARCHS + PORT_ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=2,
                     help="CUR-compress this many layers (angular choice)")

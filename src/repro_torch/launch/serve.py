@@ -41,7 +41,8 @@ import time
 import numpy as np
 
 from repro_torch import obs, resolve_device
-from repro_torch.configs import ARCHS, get_config, get_smoke
+from repro_torch.configs import (
+    ARCHS, PORT_ARCHS, get_config, get_smoke)
 from repro_torch.configs.base import CURConfig
 from repro_torch.core import calibrate, compress_model
 from repro_torch.core.compress import unrolled_config
@@ -116,7 +117,8 @@ def load_draft(directory: str, cfg, device):
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="olmo-1b", choices=list(ARCHS))
+    ap.add_argument("--arch", default="olmo-1b",
+                    choices=list(ARCHS + PORT_ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
                     help="calibration batch of --cur-layers and the "

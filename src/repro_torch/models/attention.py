@@ -42,8 +42,16 @@ DENSE_MAX = attn_xla.DENSE_MAX   # dense softmax at/below this seq length
 CHUNK = attn_xla.CHUNK           # flash chunk (query and kv)
 
 
-def qkv_project(x, p, cfg, positions):
-    """x (B,S,D) -> q (B,S,H,hd), k,v (B,S,K,hd), roped."""
+def roped(cfg, window: int) -> bool:
+    """Whether a layer of this ``window`` (0: full attention) rotates q
+    and k: always, unless ``cfg.rope_on_global`` is off and the layer is
+    a full one (NoPE)."""
+    return bool(window) or cfg.rope_on_global
+
+
+def qkv_project(x, p, cfg, positions, window: int = 0):
+    """x (B,S,D) -> q (B,S,H,hd), k,v (B,S,K,hd), roped (see
+    :func:`roped`) after the optional per-head q / k norm."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = apply_w(x, p["wq"]).reshape(B, S, H, hd)
@@ -52,8 +60,9 @@ def qkv_project(x, p, cfg, positions):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if roped(cfg, window):
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -77,14 +86,14 @@ def attn_forward(x, p, cfg, positions, *, window: int = 0, mesh=None):
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     scale = hd ** -0.5
-    q, k, v = qkv_project(x, p, cfg, positions)
+    q, k, v = qkv_project(x, p, cfg, positions, window)
     qg = _group_q(q, K)
     o = _mix(qg, k, v, positions, window, scale, cfg)
     o = o.reshape(B, S, H * hd)
     return apply_w(o, p["wo"])
 
 
-def _qkv_placed(x, p, cfg, positions, lay):
+def _qkv_placed(x, p, cfg, positions, lay, window: int = 0):
     """Roped q (B,S,Hl,hd), k, v (B,S,Kl,hd) from a rank's shards, and
     whether they are this rank's heads (else the whole heads: the gather
     fallback when a column shard cuts through a head)."""
@@ -107,8 +116,9 @@ def _qkv_placed(x, p, cfg, positions, lay):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if roped(cfg, window):
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v, heads_local
 
 
@@ -132,7 +142,7 @@ def whole_heads(ts, heads_local, mesh):
 def _attn_placed(x, p, cfg, positions, window, lay):
     """attn_forward on a rank's shards: local heads, or the gather
     fallback when a column shard cuts through a head."""
-    q, k, v, heads_local = _qkv_placed(x, p, cfg, positions, lay)
+    q, k, v, heads_local = _qkv_placed(x, p, cfg, positions, lay, window)
     hd = cfg.resolved_head_dim
     o = _mix(_group_q(q, k.shape[2]), k, v, positions, window, hd ** -0.5,
              cfg)
@@ -168,7 +178,7 @@ def attn_prefill(x, p, cfg, positions, cache, *, window: int = 0,
     where they do not divide over 'model' a block of head_dim or of the
     cache length, which the fill writes through the whole view)."""
     if mesh is not None:
-        q, k, v, hl = _qkv_placed(x, p, cfg, positions, mesh)
+        q, k, v, hl = _qkv_placed(x, p, cfg, positions, mesh, window)
         hd = cfg.resolved_head_dim
         o = _mix(_group_q(q, k.shape[2]), k, v, positions, window,
                  hd ** -0.5, cfg)
@@ -182,7 +192,7 @@ def attn_prefill(x, p, cfg, positions, cache, *, window: int = 0,
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     scale = hd ** -0.5
-    q, k, v = qkv_project(x, p, cfg, positions)
+    q, k, v = qkv_project(x, p, cfg, positions, window)
     qg = _group_q(q, K)
     o = _mix(qg, k, v, positions, window, scale, cfg)
     o = o.reshape(B, S, H * hd)
@@ -259,7 +269,7 @@ def attn_decode(x, p, cfg, cache, pos, *, window: int = 0, mesh=None,
     cache). ``mesh`` / ``cache_spec``: as :func:`attn_prefill`'s (a cache
     not sharded by kv-heads is attended through its whole view)."""
     if mesh is not None:
-        q, k, v, hl = _qkv_placed(x, p, cfg, pos, mesh)
+        q, k, v, hl = _qkv_placed(x, p, cfg, pos, mesh, window)
         if hl and _cache_heads(cache_spec["k"]):
             o = _decode_attend(q, k, v, cache, pos, window)
         else:
@@ -270,6 +280,6 @@ def attn_decode(x, p, cfg, cache, pos, *, window: int = 0, mesh=None,
         return out_placed(o, hl, p, mesh), cache
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.resolved_head_dim
-    q, k, v = qkv_project(x, p, cfg, pos)              # (B,1,.,hd)
+    q, k, v = qkv_project(x, p, cfg, pos, window)      # (B,1,.,hd)
     o = _decode_attend(q, k, v, cache, pos, window)
     return apply_w(o.reshape(B, 1, H * hd), p["wo"]), cache

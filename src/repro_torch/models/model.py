@@ -104,16 +104,18 @@ def embed_init(gen, v: int, d: int, dtype, device):
 
 
 def _init_moe_experts(gen, cfg: ModelConfig, reps: int, dtype, device):
-    """Router (reps, D, E) in f32; experts (reps, E, D, F) / (reps, E, F,
-    D); the shared expert's dense MLP when ``n_shared_experts`` is set."""
-    E, D = cfg.n_experts, cfg.d_model
+    """Router (reps, D, E) in f32 over all ``n_experts``; the held experts
+    (reps, E_held, D, F) / (reps, E_held, F, D); the shared expert's dense
+    MLP when ``n_shared_experts`` is set."""
+    E, D = cfg.n_local_experts, cfg.d_model
     F = cfg.moe_d_ff or cfg.d_ff
 
     def experts(m, n):
         return dense_init(gen, reps * E, m, n, dtype, device).reshape(
             reps, E, m, n)
 
-    p = {"router": dense_init(gen, reps, D, E, torch.float32, device),
+    p = {"router": dense_init(gen, reps, D, cfg.n_experts, torch.float32,
+                              device),
          "w_gate": experts(D, F), "w_up": experts(D, F),
          "w_down": experts(F, D)}
     if cfg.n_shared_experts:
@@ -224,13 +226,36 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
 # forward
 # ---------------------------------------------------------------------------
 
+def _output_norm(cfg) -> bool:
+    return cfg.block_norm == "output"
+
+
+def mixer_input(x, p, cfg):
+    """What the block's sequence mixer reads: norm1(x), or under
+    ``block_norm="output"`` the residual stream itself."""
+    return x if _output_norm(cfg) else norm(x, p.get("norm1"), cfg)
+
+
+def mixer_output(a, p, cfg):
+    """What the sequence mixer's output ``a`` adds to the residual stream:
+    ``a``, or norm1(a) under ``block_norm="output"``."""
+    return norm(a, p.get("norm1"), cfg) if _output_norm(cfg) else a
+
+
+def channel_input(x, p, cfg):
+    """What the block's channel mixer reads (see :func:`mixer_input`)."""
+    return x if _output_norm(cfg) else norm(x, p.get("norm2"), cfg)
+
+
 def channel_mix(x, p, spec, cfg, mesh=None):
     """x + the block's channel mixer (MLP, MoE, or none)."""
     if spec.mlp == MLP:
-        x = x + mlp_forward(norm(x, p.get("norm2"), cfg), p, cfg, mesh)
+        y = mlp_forward(channel_input(x, p, cfg), p, cfg, mesh)
     elif spec.mlp == MOE:
-        x = x + moe_forward(norm(x, p.get("norm2"), cfg), p, cfg, mesh)
-    return x
+        y = moe_forward(channel_input(x, p, cfg), p, cfg, mesh)
+    else:
+        return x
+    return x + (norm(y, p.get("norm2"), cfg) if _output_norm(cfg) else y)
 
 
 def place_on_entry(params, cfg, mesh):
@@ -251,15 +276,16 @@ def place_on_entry(params, cfg, mesh):
 
 
 def _seq_mix(x, p, spec, cfg, positions, mesh=None):
-    """The block's sequence mixer on norm1(x)."""
-    h = norm(x, p.get("norm1"), cfg)
+    """What the block's sequence mixer adds to x."""
+    h = mixer_input(x, p, cfg)
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
-        return attn.attn_forward(h, p, cfg, positions, window=win,
-                                 mesh=mesh)
-    if spec.mixer == MAMBA:
-        return mb.mamba_forward(h, p, cfg, mesh=mesh)
-    raise ValueError(spec.mixer)
+        a = attn.attn_forward(h, p, cfg, positions, window=win, mesh=mesh)
+    elif spec.mixer == MAMBA:
+        a = mb.mamba_forward(h, p, cfg, mesh=mesh)
+    else:
+        raise ValueError(spec.mixer)
+    return mixer_output(a, p, cfg)
 
 
 def _call(fn, *args):
@@ -638,7 +664,7 @@ def head_logits(params, cfg: ModelConfig, x, lay, rows):
 
 
 def _block_prefill(x, p, c, spec, cfg, positions, mesh=None, cspec=None):
-    h = norm(x, p.get("norm1"), cfg)
+    h = mixer_input(x, p, cfg)
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
         a, c = attn.attn_prefill(h, p, cfg, positions, c, window=win,
@@ -647,11 +673,11 @@ def _block_prefill(x, p, c, spec, cfg, positions, mesh=None, cspec=None):
         a, c = mb.mamba_prefill(h, p, cfg, c, mesh=mesh, cache_spec=cspec)
     else:
         raise ValueError(spec.mixer)
-    return channel_mix(x + a, p, spec, cfg, mesh), c
+    return channel_mix(x + mixer_output(a, p, cfg), p, spec, cfg, mesh), c
 
 
 def _block_decode(x, p, c, spec, cfg, pos, mesh=None, cspec=None):
-    h = norm(x, p.get("norm1"), cfg)
+    h = mixer_input(x, p, cfg)
     if spec.mixer in (ATTN, ATTN_LOCAL):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
         a, c = attn.attn_decode(h, p, cfg, c, pos, window=win, mesh=mesh,
@@ -660,7 +686,7 @@ def _block_decode(x, p, c, spec, cfg, pos, mesh=None, cspec=None):
         a, c = mb.mamba_decode(h, p, cfg, c, mesh=mesh, cache_spec=cspec)
     else:
         raise ValueError(spec.mixer)
-    return channel_mix(x + a, p, spec, cfg, mesh), c
+    return channel_mix(x + mixer_output(a, p, cfg), p, spec, cfg, mesh), c
 
 
 def _apply_groups_cached(x, params, cache, cfg, block_fn, mesh=None,

@@ -31,7 +31,17 @@ train step runs through the bodies. The mesh is a
 expert weights, their FSDP dim gathered over 'data' (the model's entry
 points place whole params under a plain ``DeviceMesh``).
 
-Routing: softmax-then-top-k with renormalized gates (Mixtral convention).
+Routing: softmax-then-top-k with renormalized gates (Mixtral convention),
+or sigmoid scores renormalized over the top k and scaled
+(``cfg.moe_scoring``, ``cfg.routed_scaling``; DeepSeek-V3 / K-EXAONE).
+
+A held share (``cfg.experts_held``: experts ``expert_first ..`` of the
+``n_experts`` the router scores, one device's share under expert
+parallelism, without the exchange) runs as ``dense`` over the held
+experts; a token's picks of absent experts add nothing. Expert stacks
+may be CUR dicts ``{"CU": (E, D, r), "R": (E, r, F)}``
+(``core.compress`` CURs experts one by one and restacks them); every
+expert product goes through :func:`_expert_mm`.
 """
 from __future__ import annotations
 
@@ -54,10 +64,33 @@ def route(xt, router, k: int):
     does (``torch.topk`` promises no order among ties)."""
     logits = (xt @ router.to(xt.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
+    return _top_k(probs, k)
+
+
+def route_sigmoid(xt, router, k: int):
+    """DeepSeek-V3's router: f32 logits, each expert's score their
+    sigmoid; the top k (as :func:`route` takes them) renormalized."""
+    return _top_k(torch.sigmoid(xt.float() @ router.float()), k)
+
+
+def _top_k(probs, k: int):
     topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topv, topi = topv[:, :k], topi[:, :k]
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     return topv, topi
+
+
+def route_cfg(xt, router, cfg):
+    """The config's router (``moe_scoring``: ``softmax`` :func:`route`,
+    ``sigmoid`` :func:`route_sigmoid`), its gates scaled by
+    ``routed_scaling``."""
+    if cfg.moe_scoring not in ("softmax", "sigmoid"):
+        raise ValueError(cfg.moe_scoring)
+    fn = route_sigmoid if cfg.moe_scoring == "sigmoid" else route
+    gates, experts = fn(xt, router, cfg.n_experts_per_tok)
+    if cfg.routed_scaling != 1.0:
+        gates = gates * cfg.routed_scaling
+    return gates, experts
 
 
 # (E, T, F) elements of one token chunk's expert activations: long
@@ -71,17 +104,17 @@ def _experts(xt, experts, gates, p, act):
     """The routed output of tokens xt (T, D): every expert applied, the
     top-k gathered and weighted. The products keep the expert axis
     leading, (E, T, .), so no operand is permuted."""
-    g = act(torch.matmul(xt, p["w_gate"]))                  # (E, T, F)
-    u = torch.matmul(xt, p["w_up"])
-    y = torch.matmul(g * u, p["w_down"])                    # (E, T, D)
+    g = act(_expert_mm(xt, p["w_gate"]))                    # (E, T, F)
+    u = _expert_mm(xt, p["w_up"])
+    y = _expert_mm(g * u, p["w_down"])                      # (E, T, D)
     tok = torch.arange(xt.shape[0], device=xt.device)[:, None]
     sel = y[experts, tok]                                   # (T, k, D)
     return (sel * gates[:, :, None].to(sel.dtype)).sum(dim=1)
 
 
 def moe_dense(x, p, cfg):
-    """x (B, S, D) -> (B, S, D): all experts on all tokens, the routed ones
-    gathered and weighted, plus the shared expert's MLP."""
+    """x (B, S, D) -> (B, S, D): the routed experts' part (all held
+    experts on all tokens) plus the shared expert's MLP."""
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
     out = _routed_dense(xt, p, cfg)
@@ -90,16 +123,49 @@ def moe_dense(x, p, cfg):
     return out.reshape(B, S, D)
 
 
+def _cols(w) -> int:
+    """Output width of a dense expert stack or of a CUR one."""
+    return (w["R"] if isinstance(w, dict) else w).shape[-1]
+
+
 def _routed_dense(xt, p, cfg):
-    """moe_dense's routed part on tokens xt (T, D), in token chunks."""
+    """moe_dense's routed part on tokens xt (T, D), in token chunks. Of a
+    held share, a pick of an absent expert gets gate 0."""
     T = xt.shape[0]
     act = act_fn(cfg.mlp_act)
-    gates, experts = route(xt, p["router"], cfg.n_experts_per_tok)
-    E, _, F = p["w_gate"].shape
+    gates, experts = route_cfg(xt, p["router"], cfg)
+    E, F = cfg.n_local_experts, _cols(p["w_gate"])
+    if cfg.experts_held:
+        slot = _held_slots(experts, cfg)
+        gates = torch.where(slot < E, gates, torch.zeros_like(gates))
+        experts = slot.clamp(max=E - 1)
     step = max(1, CHUNK_ELEMS // (E * F))
     return torch.cat([_experts(xt[t:t + step], experts[t:t + step],
                                gates[t:t + step], p, act)
                       for t in range(0, T, step)])
+
+
+def _held_slots(experts, cfg):
+    """(T, k) routed expert ids -> (T, k) index of each into the held
+    share, ``n_local_experts`` where the expert is not held here."""
+    E = cfg.n_local_experts
+    local = experts - cfg.expert_first
+    return torch.where((local >= 0) & (local < E), local, E)
+
+
+def expert_act_sq(h, router, cfg):
+    """WANDA statistics of the held experts' inputs: h (B, S, D) ->
+    (sum over the tokens routed to each held expert of their squared
+    inputs (E, D) f32, each held expert's token count (E,) f32)."""
+    xt = h.reshape(-1, h.shape[-1])
+    E = cfg.n_local_experts
+    _, experts = route_cfg(xt, router, cfg)
+    slot = _held_slots(experts, cfg)
+    hit = torch.zeros((xt.shape[0], E + 1), dtype=torch.float32,
+                      device=xt.device)
+    hit.scatter_(1, slot, 1.0)
+    hit = hit[:, :E]
+    return hit.T @ xt.float().square(), hit.sum(dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +206,7 @@ def _expert_ffn(h, wg, wu, wd, act):
     """h (E, C, D) x weights (E, D, F) / (E, F, D) -> (E, C, D)."""
     g = act(_expert_mm(h, wg))
     u = _expert_mm(h, wu)
-    return torch.matmul(g * u, wd)
+    return _expert_mm(g * u, wd)
 
 
 def _assignments(xs, router, cfg):
@@ -150,7 +216,7 @@ def _assignments(xs, router, cfg):
     k = cfg.n_experts_per_tok
     T = xs.shape[0] * xs.shape[1]
     xt = xs.reshape(T, xs.shape[-1])
-    gates, experts = route(xt, router, k)
+    gates, experts = route_cfg(xt, router, cfg)
     fe = experts.reshape(-1)
     ft = torch.arange(T, device=xs.device).repeat_interleave(k)
     capE = max(1, math.ceil(T * k * cfg.capacity_factor / cfg.n_experts))
@@ -265,6 +331,10 @@ def moe_forward(x, p, cfg, mesh=None):
     'data' / 'pod' batch axes; see the module docstring)."""
     if mesh is None:
         return moe_dense(x, p, cfg)
+    if cfg.experts_held:
+        raise NotImplementedError(
+            f"{cfg.name}: a held share of experts runs without a mesh only "
+            "(placed expert-parallel CUR of experts is not built)")
     lay, mesh = mesh, mesh.mesh
     if cfg.moe_impl == "dense":
         w = {k: _whole(p[k], lay.spec(k), mesh)

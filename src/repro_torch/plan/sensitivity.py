@@ -214,7 +214,10 @@ def profile_sensitivity(params, cfg: ModelConfig, cur_cfg: CURConfig,
         grid = default_grid(cur_cfg.r_max)
     if layers is None:
         layers = range(1, cfg.n_layers - 1)
-    work = _cur_work_list(params, cfg, cur_cfg, calib, set(layers))
+    # a plan's ranks are per weight name: held experts (one name a stack)
+    # are not planned
+    work = [it for it in _cur_work_list(params, cfg, cur_cfg, calib,
+                                        set(layers)) if it.expert is None]
 
     classes: Dict[Tuple[int, int], List[int]] = {}
     for i, it in enumerate(work):

@@ -38,7 +38,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_w, norm
 from repro_torch.models.model import (
     _embed, _unembed, channel_mix, head_logits, iter_layer_params,
-    iter_layers, place_on_entry, serve_entry, take_rows, torch_dtype)
+    iter_layers, mixer_input, mixer_output, place_on_entry, serve_entry,
+    take_rows, torch_dtype)
 from repro_torch.serving import paged_cache as pcache
 from repro_torch.serving.sampling import (
     greedy_tokens, request_generator, sample_tokens)
@@ -113,11 +114,11 @@ def _entry(params, cfg, pc, cache, batch: int, mesh):
     return params, lay, rows, drop_lead(spec)
 
 
-def _project(h, p, cfg, positions, lay):
+def _project(h, p, cfg, positions, lay, window):
     """(q, k, v, whether they are this rank's kv-heads) of one layer."""
     if lay is None:
-        return (*attn.qkv_project(h, p, cfg, positions), False)
-    return attn._qkv_placed(h, p, cfg, positions, lay)
+        return (*attn.qkv_project(h, p, cfg, positions, window), False)
+    return attn._qkv_placed(h, p, cfg, positions, lay, window)
 
 
 def _out(o, heads_local, p, lay):
@@ -201,8 +202,8 @@ def paged_prefill(params, cfg: ModelConfig, pc: pcache.PagedConfig,
 
     for li, spec, p, ll in iter_layers(params, cfg, lay):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
-        h = norm(x, p.get("norm1"), cfg)
-        q, k, v, hl = _project(h, p, cfg, positions, ll)
+        h = mixer_input(x, p, cfg)
+        q, k, v, hl = _project(h, p, cfg, positions, ll, win)
         qg = attn._group_q(q, k.shape[2])
         qk, uk, qv, uv = _layer_proj(cache, li)
         if qk is None:                            # dense pool
@@ -212,7 +213,7 @@ def paged_prefill(params, cfg: ModelConfig, pc: pcache.PagedConfig,
             o, kc, vc = be.fn(qg, k, v, positions, win, scale, cfg,
                               (qk, uk, qv, uv))
         _pools(cache, li, pspec, hl, lay, rows, write, kc, vc)
-        x = x + _out(o, hl, p, ll)
+        x = x + mixer_output(_out(o, hl, p, ll), p, cfg)
         x = channel_mix(x, p, spec, cfg, ll)
     x = norm(x, params.get("final_norm"), cfg)
     x_last = x[torch.arange(B, device=dev), last][:, None]
@@ -281,8 +282,8 @@ def paged_verify(params, cfg: ModelConfig, pc: pcache.PagedConfig,
     scale = cfg.resolved_head_dim ** -0.5
     for li, spec, p, ll in iter_layers(params, cfg, lay):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
-        h = norm(x, p.get("norm1"), cfg)
-        q, k, v, hl = _project(h, p, cfg, pos, ll)        # (B, S, ., hd)
+        h = mixer_input(x, p, cfg)
+        q, k, v, hl = _project(h, p, cfg, pos, ll, win)   # (B, S, ., hd)
         qk, uk, qv, uv = _layer_proj(cache, li)
 
         def step(pools, q, kc, vc):
@@ -298,7 +299,7 @@ def paged_verify(params, cfg: ModelConfig, pc: pcache.PagedConfig,
 
         o, hl = _pools(cache, li, pspec, hl, lay, rows, step, q,
                        pcache.compress_kv(k, qk), pcache.compress_kv(v, qv))
-        x = x + _out(o, hl, p, ll)
+        x = x + mixer_output(_out(o, hl, p, ll), p, cfg)
         x = channel_mix(x, p, spec, cfg, ll)
     x = norm(x, params.get("final_norm"), cfg)
     return _logits(params, cfg, x, lay, rows), cache      # (B, S, V)
@@ -371,13 +372,13 @@ def collect_kv(params, cfg: ModelConfig, tokens: torch.Tensor
     ks, vs = [], []
     for li, spec, p in iter_layer_params(params, cfg):
         win = cfg.window if spec.mixer == ATTN_LOCAL else 0
-        h = norm(x, p.get("norm1"), cfg)
-        q, k, v = attn.qkv_project(h, p, cfg, positions)
+        h = mixer_input(x, p, cfg)
+        q, k, v = attn.qkv_project(h, p, cfg, positions, win)
         ks.append(k)
         vs.append(v)
         qg = attn._group_q(q, cfg.n_kv_heads)
         o = attn._mix(qg, k, v, positions, win, scale, cfg)
-        x = x + apply_w(o.reshape(B, S, -1), p["wo"])
+        x = x + mixer_output(apply_w(o.reshape(B, S, -1), p["wo"]), p, cfg)
         x = channel_mix(x, p, spec, cfg)
     return ks, vs
 

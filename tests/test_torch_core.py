@@ -76,6 +76,30 @@ def test_deim_batched_equals_per_matrix():
             batched[i], _np(deim(torch.from_numpy(Ps[i]))))
 
 
+@pytest.mark.parametrize("device,inside", [("cuda", ["cusolver"]),
+                                           ("cpu", [])])
+def test_deim_prefers_cusolver_on_cuda_only(monkeypatch, device, inside):
+    """DEIM's loop prefers cuSOLVER / cuBLAS on a CUDA device (PyTorch's
+    default sends a batch to MAGMA) and restores the preference after,
+    also when the loop raises; on the CPU it sets nothing."""
+    import importlib
+    deim_mod = importlib.import_module("repro_torch.core.deim")
+    calls = []
+
+    def pref(backend=None):
+        if backend is None:
+            return "default"
+        calls.append(backend)
+    monkeypatch.setattr(torch.backends.cuda, "preferred_linalg_library",
+                        pref)
+    with deim_mod._cusolver(torch.device(device)):
+        assert calls == inside
+    with pytest.raises(RuntimeError):
+        with deim_mod._cusolver(torch.device(device)):
+            raise RuntimeError
+    assert calls == ((inside + ["default"]) * 2 if inside else [])
+
+
 def _reconstruct(P, sig, Q):
     return (np.asarray(P) * np.asarray(sig)) @ np.asarray(Q).T
 
