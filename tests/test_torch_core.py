@@ -57,9 +57,10 @@ def test_wanda_scores_match_jax():
                  jax_wanda(jnp.asarray(W), jnp.asarray(a)))
 
 
-@pytest.mark.parametrize("m,r,seed", [(64, 8, 1), (96, 16, 2), (40, 40, 3)])
+@pytest.mark.parametrize("m,r,seed", [(64, 8, 1), (96, 16, 2), (40, 40, 3),
+                                      (512, 64, 4), (2048, 128, 5)])
 def test_deim_matches_jax(m, r, seed):
-    W = _lowrank(m, 48 if m != 40 else 40, seed)
+    W = _lowrank(m, 40 if m == 40 else max(48, 2 * r), seed)
     P = np.linalg.svd(W.astype(np.float64))[0][:, :r].astype(np.float32)
     pj = np.asarray(jax_deim(jnp.asarray(P)))
     pt = _np(deim(torch.from_numpy(P)))
@@ -76,28 +77,68 @@ def test_deim_batched_equals_per_matrix():
             batched[i], _np(deim(torch.from_numpy(Ps[i]))))
 
 
-@pytest.mark.parametrize("device,inside", [("cuda", ["cusolver"]),
-                                           ("cpu", [])])
-def test_deim_prefers_cusolver_on_cuda_only(monkeypatch, device, inside):
-    """DEIM's loop prefers cuSOLVER / cuBLAS on a CUDA device (PyTorch's
-    default sends a batch to MAGMA) and restores the preference after,
-    also when the loop raises; on the CPU it sets nothing."""
-    import importlib
-    deim_mod = importlib.import_module("repro_torch.core.deim")
-    calls = []
+def _orthonormal(*shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        np.linalg.qr(rng.standard_normal(shape))[0].astype(np.float32))
 
-    def pref(backend=None):
-        if backend is None:
-            return "default"
-        calls.append(backend)
-    monkeypatch.setattr(torch.backends.cuda, "preferred_linalg_library",
-                        pref)
-    with deim_mod._cusolver(torch.device(device)):
-        assert calls == inside
-    with pytest.raises(RuntimeError):
-        with deim_mod._cusolver(torch.device(device)):
-            raise RuntimeError
-    assert calls == ((inside + ["default"]) * 2 if inside else [])
+
+def _deim_skipping_zero_pivots(V):
+    """DEIM in float64 by explicit solves, each residual against the rows
+    picked at nonzero pivots only; a residual at rounding level (of unit
+    columns) counts as zero and picks the first row not yet picked."""
+    V = V.double().numpy()
+    picks, rows, cols = [], [], []
+    for j in range(V.shape[1]):
+        res = V[:, j].copy()
+        if cols:
+            c = np.linalg.solve(V[np.ix_(rows, cols)], V[rows, j])
+            res -= V[:, cols] @ c
+        score = np.where(np.abs(res) < 1e-12, 0.0, np.abs(res))
+        score[picks] = -1.0
+        picks.append(int(np.argmax(score)))
+        if score.max() > 0:
+            rows.append(picks[-1])
+            cols.append(j)
+    return picks
+
+
+def test_deim_zero_pivot_stays_distinct(pivots):
+    """A repeated column and a zero column leave nothing to interpolate
+    at their steps (a zero pivot): the step skips its update, the later
+    residuals stay finite, and the picks stay r distinct rows, in a batch
+    beside a sound matrix too."""
+    Q = _orthonormal(2, 40, 6, seed=7)
+    V = Q.clone()
+    V[0, :, 2] = V[0, :, 0]                          # repeated column
+    V[0, :, 4] = 0                                   # zero column
+    p = deim(V)
+    assert p.shape == (2, 6) and p.dtype == torch.int64
+    for row in p.tolist():
+        assert len(set(row)) == 6 and all(0 <= i < 40 for i in row)
+    assert p[0].tolist() == _deim_skipping_zero_pivots(V[0])
+    assert torch.equal(p[1], deim(Q[1]))
+    assert pivots() == {"zero": 1, "nonzero": 1}
+
+
+def test_deim_counts_calls(pivots, monkeypatch):
+    """One count a call, batched or not; while the registry is off, no
+    count and no readback."""
+    V = _orthonormal(3, 64, 16, seed=8)
+    deim(V)
+    deim(V[0])
+    assert pivots() == {"nonzero": 2}
+
+    def readback(*_):
+        raise AssertionError("a readback with the registry off")
+    obs_metrics.disable()
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.Tensor, "__bool__", readback)
+        mp.setattr(torch.Tensor, "item", readback)
+        p = deim(V)
+    obs_metrics.enable()
+    assert pivots() == {"nonzero": 2}
+    assert torch.equal(p[0], deim(V[0]))
 
 
 def _reconstruct(P, sig, Q):
@@ -122,21 +163,33 @@ def _wanda_like(m, n, lead=(), seed=0):
 
 
 @pytest.fixture
-def routes():
-    """The process-wide registry on and empty; yields a reader of the
-    exact SVD's calls by route."""
+def registry():
+    """The process-wide registry on and empty; yields a reader of one
+    labelled counter's values by label."""
     obs_metrics.disable()
     obs_metrics.default_registry().reset()
     obs_metrics.enable()
 
-    def count():
-        c = obs_metrics.default_registry().get("repro_cur_svd_calls_total")
+    def count(name):
+        c = obs_metrics.default_registry().get(name)
         return {} if c is None else {
             key.split("=")[1]: v["value"]
             for key, v in c.snapshot()["children"].items()}
     yield count
     obs_metrics.disable()
     obs_metrics.default_registry().reset()
+
+
+@pytest.fixture
+def routes(registry):
+    """A reader of the exact SVD's calls by route."""
+    return lambda: registry("repro_cur_svd_calls_total")
+
+
+@pytest.fixture
+def pivots(registry):
+    """A reader of DEIM's calls by pivot."""
+    return lambda: registry("repro_cur_deim_calls_total")
 
 
 def _svd_departures(S, P, sig, Q):
